@@ -3,7 +3,9 @@
 // Replaces the elementwise Pallas kernel factory of
 // aztec_tpu/ff/pallas_field.py (`_elementwise_call` / `elementwise_op`) for
 // its four main-path formulas: `mont_mul`, `add_mod`, `sub_mod` and the
-// fused Stockham `butterfly` (top + tw*bot, top - tw*bot).
+// fused Stockham `butterfly` (top + tw*bot, top - tw*bot), and for the fused
+// `mul_add` (a*b + c, pallas_field.py:359-371), which no path of either
+// package calls yet.
 //
 // One thread per element; the element's limbs live in registers.  What
 // bounds it on an H100: a mont_mul moves 3 x 64 bytes per element (two
@@ -63,6 +65,16 @@ __global__ void butterfly_kernel(const u32* __restrict__ top,
   store(minus, n, j, sub<F>(t, m));
 }
 
+template <class F>
+__global__ void mul_add_kernel(const u32* __restrict__ a,
+                               const u32* __restrict__ b,
+                               const u32* __restrict__ c, u32* __restrict__ out,
+                               long long n) {
+  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  store(out, n, j, add<F>(mul<F>(load(a, n, j), load(b, n, j)), load(c, n, j)));
+}
+
 }  // namespace
 
 #define DISPATCH(field, KERNEL, ...)                                       \
@@ -99,6 +111,12 @@ int fk_sub_mod(int field, const u32* a, const u32* b, u32* out, long long n,
 int fk_butterfly(int field, const u32* top, const u32* bot, const u32* tw,
                  u32* plus, u32* minus, long long n, void* stream) {
   DISPATCH(field, butterfly_kernel, top, bot, tw, plus, minus, n);
+  return (int)cudaGetLastError();
+}
+
+int fk_mul_add(int field, const u32* a, const u32* b, const u32* c, u32* out,
+               long long n, void* stream) {
+  DISPATCH(field, mul_add_kernel, a, b, c, out, n);
   return (int)cudaGetLastError();
 }
 

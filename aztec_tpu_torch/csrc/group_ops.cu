@@ -6,143 +6,28 @@
 //   gk_mixed_add     <- _f_mixed_add_unsafe  Jacobian + affine, 7M + 4S
 //   gk_add_unsafe    <- _f_add_unsafe        Jacobian + Jacobian, 11M + 5S
 //   gk_proj_add      <- _make_proj_add       RCB16 algorithm 7, complete
+//   gk_proj_dbl      <- _make_proj_dbl       RCB16 algorithm 9, one doubling
 //   gk_proj_dbl_n    <- _make_proj_dbl_n     `steps` RCB16 alg. 9 doublings
 //   gk_j2c           <- _f_j2c               Jacobian -> homogeneous projective
 //   gk_c2j           <- _f_c2j               projective -> Jacobian
-// Each formula is a line-for-line mirror of the TPU formula (same operation
-// order, same infinity selects), and every field op returns the canonical
-// representative, so the coordinates are bit-identical.
+// The formulas live in group.cuh (line-for-line mirrors of the TPU
+// formulas), so the coordinates are bit-identical.
 //
 // Bound on an H100: a mixed add reads 5 x 64 bytes and writes 3 x 64 bytes
 // per point against ~11 Montgomery products of 128 32-bit multiply-adds
 // each; at 2^14..2^19 points the integer multiply rate bounds it, so the
 // design keeps all intermediates in registers (no shared memory) and
-// touches device memory only for the inputs and outputs.
-#include "field.cuh"
+// touches device memory only for the inputs and outputs.  `gk_proj_dbl`
+// runs at width 1 on its path (the fixed-base window tables double one
+// base point), where one launch of one thread is bound by the launch
+// itself; batching the doublings of a window (`gk_proj_dbl_n`) is left to
+// a later change, since the reference's `fixed_base.py` doubles one step at
+// a time.
+#include "group.cuh"
 
 using namespace aztec;
 
 namespace {
-
-struct Pt {
-  Elem x, y, z;
-};
-
-template <class F>
-__device__ __forceinline__ Pt mixed_add_unsafe(const Pt& P, const Elem& X2,
-                                               const Elem& Y2) {
-  const Elem &X1 = P.x, &Y1 = P.y, &Z1 = P.z;
-  Elem Z1Z1 = sqr<F>(Z1);
-  Elem U2 = mul<F>(X2, Z1Z1);
-  Elem S2 = mul<F>(mul<F>(Y2, Z1), Z1Z1);
-  Elem H = sub<F>(U2, X1);
-  Elem HH = sqr<F>(H);
-  Elem I = add<F>(HH, HH);
-  I = add<F>(I, I);
-  Elem J = mul<F>(H, I);
-  Elem r = sub<F>(S2, Y1);
-  r = add<F>(r, r);
-  Elem V = mul<F>(X1, I);
-  Elem r2 = sqr<F>(r);
-  Elem X3 = sub<F>(sub<F>(r2, J), add<F>(V, V));
-  Elem YJ = mul<F>(Y1, J);
-  Elem Y3 = sub<F>(mul<F>(r, sub<F>(V, X3)), add<F>(YJ, YJ));
-  Elem ZH = sqr<F>(add<F>(Z1, H));
-  Elem Z3 = sub<F>(sub<F>(ZH, Z1Z1), HH);
-  bool p_inf = is_zero(Z1);
-  Pt out;
-  out.x = select(p_inf, X2, X3);
-  out.y = select(p_inf, Y2, Y3);
-  out.z = select(p_inf, one_mont<F>(), Z3);
-  return out;
-}
-
-template <class F>
-__device__ __forceinline__ Pt add_unsafe(const Pt& P, const Pt& Q) {
-  const Elem &X1 = P.x, &Y1 = P.y, &Z1 = P.z;
-  const Elem &X2 = Q.x, &Y2 = Q.y, &Z2 = Q.z;
-  Elem Z1Z1 = sqr<F>(Z1);
-  Elem Z2Z2 = sqr<F>(Z2);
-  Elem U1 = mul<F>(X1, Z2Z2);
-  Elem U2 = mul<F>(X2, Z1Z1);
-  Elem S1 = mul<F>(mul<F>(Y1, Z2), Z2Z2);
-  Elem S2 = mul<F>(mul<F>(Y2, Z1), Z1Z1);
-  Elem H = sub<F>(U2, U1);
-  Elem H2 = add<F>(H, H);
-  Elem I = sqr<F>(H2);
-  Elem J = mul<F>(H, I);
-  Elem r = sub<F>(S2, S1);
-  r = add<F>(r, r);
-  Elem V = mul<F>(U1, I);
-  Elem r2 = sqr<F>(r);
-  Elem X3 = sub<F>(sub<F>(r2, J), add<F>(V, V));
-  Elem SJ = mul<F>(S1, J);
-  Elem Y3 = sub<F>(mul<F>(r, sub<F>(V, X3)), add<F>(SJ, SJ));
-  Elem ZZ = sqr<F>(add<F>(Z1, Z2));
-  Elem Z3 = mul<F>(sub<F>(sub<F>(ZZ, Z1Z1), Z2Z2), H);
-  bool p_inf = is_zero(Z1);
-  bool q_inf = is_zero(Z2);
-  Pt out;
-  out.x = select(p_inf, X2, select(q_inf, X1, X3));
-  out.y = select(p_inf, Y2, select(q_inf, Y1, Y3));
-  out.z = select(p_inf, Z2, select(q_inf, Z1, Z3));
-  return out;
-}
-
-template <class F>
-__device__ __forceinline__ Pt proj_add(const Pt& P, const Pt& Q,
-                                       const Elem& b3) {
-  const Elem &X1 = P.x, &Y1 = P.y, &Z1 = P.z;
-  const Elem &X2 = Q.x, &Y2 = Q.y, &Z2 = Q.z;
-  Elem t0 = mul<F>(X1, X2);
-  Elem t1 = mul<F>(Y1, Y2);
-  Elem t2 = mul<F>(Z1, Z2);
-  Elem t3 = mul<F>(add<F>(X1, Y1), add<F>(X2, Y2));
-  t3 = sub<F>(t3, add<F>(t0, t1));
-  Elem t4 = mul<F>(add<F>(Y1, Z1), add<F>(Y2, Z2));
-  t4 = sub<F>(t4, add<F>(t1, t2));
-  Elem X3 = mul<F>(add<F>(X1, Z1), add<F>(X2, Z2));
-  Elem Y3 = sub<F>(X3, add<F>(t0, t2));
-  X3 = add<F>(t0, t0);
-  t0 = add<F>(X3, t0);
-  t2 = mul<F>(t2, b3);  // mul_small(t2, 3b): one full REDC
-  Elem Z3 = add<F>(t1, t2);
-  t1 = sub<F>(t1, t2);
-  Y3 = mul<F>(Y3, b3);
-  X3 = sub<F>(mul<F>(t3, t1), mul<F>(t4, Y3));
-  Y3 = add<F>(mul<F>(t1, Z3), mul<F>(Y3, t0));
-  Z3 = add<F>(mul<F>(Z3, t4), mul<F>(t0, t3));
-  Pt out;
-  out.x = X3;
-  out.y = Y3;
-  out.z = Z3;
-  return out;
-}
-
-template <class F>
-__device__ __forceinline__ Pt proj_dbl(const Pt& P, const Elem& b3) {
-  const Elem &X = P.x, &Y = P.y, &Z = P.z;
-  Elem t0 = sqr<F>(Y);
-  Elem Z3 = add<F>(t0, t0);
-  Z3 = add<F>(Z3, Z3);
-  Z3 = add<F>(Z3, Z3);
-  Elem t1 = mul<F>(Y, Z);
-  Elem t2 = mul<F>(sqr<F>(Z), b3);
-  Elem X3 = mul<F>(t2, Z3);
-  Elem Y3 = add<F>(t0, t2);
-  Z3 = mul<F>(t1, Z3);
-  t1 = add<F>(t2, t2);
-  t2 = add<F>(t1, t2);
-  t0 = sub<F>(t0, t2);
-  Y3 = add<F>(X3, mul<F>(t0, Y3));
-  X3 = mul<F>(t0, mul<F>(X, Y));
-  X3 = add<F>(X3, X3);
-  Pt out;
-  out.x = X3;
-  out.y = Y3;
-  out.z = Z3;
-  return out;
-}
 
 #define INDEX                                                      \
   long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; \
@@ -153,11 +38,9 @@ __global__ void mixed_add_kernel(const u32* X1, const u32* Y1, const u32* Z1,
                                  const u32* X2, const u32* Y2, u32* X3, u32* Y3,
                                  u32* Z3, long long n) {
   INDEX
-  Pt P{load(X1, n, j), load(Y1, n, j), load(Z1, n, j)};
-  Pt R = mixed_add_unsafe<F>(P, load(X2, n, j), load(Y2, n, j));
-  store(X3, n, j, R.x);
-  store(Y3, n, j, R.y);
-  store(Z3, n, j, R.z);
+  Pt R = mixed_add_unsafe<F>(load_pt(X1, Y1, Z1, n, j), load(X2, n, j),
+                             load(Y2, n, j));
+  store_pt(X3, Y3, Z3, n, j, R);
 }
 
 template <class F>
@@ -165,12 +48,8 @@ __global__ void add_unsafe_kernel(const u32* X1, const u32* Y1, const u32* Z1,
                                   const u32* X2, const u32* Y2, const u32* Z2,
                                   u32* X3, u32* Y3, u32* Z3, long long n) {
   INDEX
-  Pt P{load(X1, n, j), load(Y1, n, j), load(Z1, n, j)};
-  Pt Q{load(X2, n, j), load(Y2, n, j), load(Z2, n, j)};
-  Pt R = add_unsafe<F>(P, Q);
-  store(X3, n, j, R.x);
-  store(Y3, n, j, R.y);
-  store(Z3, n, j, R.z);
+  Pt R = add_unsafe<F>(load_pt(X1, Y1, Z1, n, j), load_pt(X2, Y2, Z2, n, j));
+  store_pt(X3, Y3, Z3, n, j, R);
 }
 
 template <class F>
@@ -179,12 +58,9 @@ __global__ void proj_add_kernel(const u32* X1, const u32* Y1, const u32* Z1,
                                 u32* X3, u32* Y3, u32* Z3, Const256 b3,
                                 long long n) {
   INDEX
-  Pt P{load(X1, n, j), load(Y1, n, j), load(Z1, n, j)};
-  Pt Q{load(X2, n, j), load(Y2, n, j), load(Z2, n, j)};
-  Pt R = proj_add<F>(P, Q, from_const(b3));
-  store(X3, n, j, R.x);
-  store(Y3, n, j, R.y);
-  store(Z3, n, j, R.z);
+  Pt R = proj_add<F>(load_pt(X1, Y1, Z1, n, j), load_pt(X2, Y2, Z2, n, j),
+                     from_const(b3));
+  store_pt(X3, Y3, Z3, n, j, R);
 }
 
 template <class F>
@@ -192,25 +68,17 @@ __global__ void proj_dbl_n_kernel(const u32* X1, const u32* Y1, const u32* Z1,
                                   u32* X3, u32* Y3, u32* Z3, Const256 b3,
                                   int steps, long long n) {
   INDEX
-  Pt P{load(X1, n, j), load(Y1, n, j), load(Z1, n, j)};
+  Pt P = load_pt(X1, Y1, Z1, n, j);
   Elem b = from_const(b3);
   for (int s = 0; s < steps; ++s) P = proj_dbl<F>(P, b);
-  store(X3, n, j, P.x);
-  store(Y3, n, j, P.y);
-  store(Z3, n, j, P.z);
+  store_pt(X3, Y3, Z3, n, j, P);
 }
 
 template <class F>
 __global__ void j2c_kernel(const u32* X1, const u32* Y1, const u32* Z1,
                            u32* X3, u32* Y3, u32* Z3, long long n) {
   INDEX
-  Elem X = load(X1, n, j), Y = load(Y1, n, j), Z = load(Z1, n, j);
-  Elem Xp = mul<F>(X, Z);
-  Elem Zp = mul<F>(sqr<F>(Z), Z);
-  bool inf = is_zero(Z);
-  store(X3, n, j, Xp);
-  store(Y3, n, j, select(inf, one_mont<F>(), Y));
-  store(Z3, n, j, Zp);
+  store_pt(X3, Y3, Z3, n, j, j2c<F>(load_pt(X1, Y1, Z1, n, j)));
 }
 
 template <class F>
@@ -221,12 +89,6 @@ __global__ void c2j_kernel(const u32* X1, const u32* Y1, const u32* Z1,
   store(X3, n, j, mul<F>(X, Z));
   store(Y3, n, j, mul<F>(Y, sqr<F>(Z)));
   store(Z3, n, j, Z);
-}
-
-Const256 const_from_host(const u32* limbs) {
-  Const256 c;
-  for (int i = 0; i < NL; ++i) c.v[i] = limbs[i];
-  return c;
 }
 
 }  // namespace
@@ -264,6 +126,15 @@ int gk_proj_add(int field, const u32* X1, const u32* Y1, const u32* Z1,
                 u32* Z3, const u32* b3, long long n, void* stream) {
   Const256 c = const_from_host(b3);
   DISPATCH(field, proj_add_kernel, X1, Y1, Z1, X2, Y2, Z2, X3, Y3, Z3, c, n);
+  return (int)cudaGetLastError();
+}
+
+// one doubling: the loop body of gk_proj_dbl_n, launched with steps = 1
+int gk_proj_dbl(int field, const u32* X1, const u32* Y1, const u32* Z1,
+                u32* X3, u32* Y3, u32* Z3, const u32* b3, long long n,
+                void* stream) {
+  Const256 c = const_from_host(b3);
+  DISPATCH(field, proj_dbl_n_kernel, X1, Y1, Z1, X3, Y3, Z3, c, 1, n);
   return (int)cudaGetLastError();
 }
 

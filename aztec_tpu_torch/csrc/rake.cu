@@ -1,36 +1,65 @@
-// K3: the packed rake scan of the chunked Pippenger MSM.
+// K3 and K5: the rake scans of the Pippenger MSM.
 //
-// Replaces `_rake_packed_call` / `rake_scan_packed` of
-// aztec_tpu/msm/rake_pallas.py.  B independent lanes each walk K sorted
-// (digit, point) entries in order: while the digit repeats, the next affine
-// point is mixed-added into the lane's Jacobian accumulator (the 7M + 4S
-// formula of curves/group_pallas.py `_f_mixed_add_unsafe`), otherwise the
-// run restarts from that point with Z = 1.  Every running partial is
-// emitted.
+// Replace aztec_tpu/msm/rake_pallas.py:
+//   rk_rake_packed <- `_rake_packed_call` / `rake_scan_packed` (K3), the
+//                     chunked pipeline's and the engine's packed branch;
+//   rk_rake        <- `_rake_call` / `rake_scan` (K5), the engine's unpacked
+//                     branch (msm/pippenger.py `_rake_segment_scan`).
+// B independent lanes each walk K sorted (digit, point) entries in order:
+// while the digit repeats, the next affine point is mixed-added into the
+// lane's Jacobian accumulator (the 7M + 4S formula of group.cuh), otherwise
+// the run restarts from that point with Z = 1.  Every running partial is
+// emitted.  Both kernels share that step (`rake_step`) and differ only in
+// layout.
 //
-// Layouts (all K-major, element (k, b) at column k * B + b):
+// K3 layouts (all K-major, element (k, b) at column k * B + b):
 //   dig     (K * B)         uint32 digits
 //   packed  (16, K * B)     rows 0-7: X limb pairs, rows 8-15: Y limb pairs
 //                           (limb 2i in the low half-word of row i), which
 //                           is exactly the 8 x 32-bit limb form
 //   out X/Y/Z (16, K * B)   16-bit limb planes of the running partials
+// K5 layouts (n-order, element (b, k) at column b * K + k, the reference's
+// `rake_scan` contract):
+//   dig     (B * K)         uint32 sorted digits
+//   X, Y    (16, B * K)     16-bit limb planes of the sorted points
+//   out X/Y/Z (16, B * K)   = (16, B, K)
 //
 // On the TPU the grid walks K sequentially and carries the accumulator in
-// VMEM scratch between grid steps.  Blocks on the card run in no order, so
-// here the K steps are a loop inside one thread and the accumulator stays
-// in registers; nothing is carried between blocks.  Neighbouring threads
-// are neighbouring lanes, so every load and store of a step is coalesced.
+// VMEM scratch between grid steps, and `rake_scan` exists only for B a
+// multiple of 1024 (the (8, 128) tile).  Blocks on the card run in no
+// order, so here the K steps are a loop inside one thread and the
+// accumulator stays in registers; nothing is carried between blocks, and
+// K5 takes any B.  In K3 neighbouring threads are neighbouring lanes at
+// neighbouring columns, so every load and store of a step is coalesced.
+// K5 keeps the reference's n-order layout: neighbouring lanes sit K
+// columns apart, so its loads and stores are strided; relaying out to
+// K-major (or staging a tile through shared memory) is left to a later
+// change.  On its path (B = 128 lanes, 32 rounds of the 2^11-point tier)
+// K5 is bound by the launch and by the K sequential steps of one lane,
+// not by the card's rates.
 //
-// Bound on an H100: per entry it reads 68 bytes and writes 192 bytes
+// Bound on an H100: per entry K3 reads 68 bytes and writes 192 bytes
 // against one mixed add (~11 Montgomery products); at the main path's
 // 2^21 entries per chunk the integer multiply rate bounds it.
-#include "field.cuh"
+#include "group.cuh"
 
 using namespace aztec;
 
 namespace {
 
 constexpr u32 SENTINEL = 0x1FFFFu;  // no digit equals it: first step restarts
+
+// One step of a lane: continue the run with (X2, Y2), or restart from it.
+template <class F>
+__device__ __forceinline__ void rake_step(Pt& acc, u32& prevd, u32 dk,
+                                          const Elem& X2, const Elem& Y2) {
+  Pt added = mixed_add_unsafe<F>(acc, X2, Y2);
+  const bool same = dk == prevd;
+  acc.x = select(same, added.x, X2);
+  acc.y = select(same, added.y, Y2);
+  acc.z = select(same, added.z, one_mont<F>());
+  prevd = dk;
+}
 
 template <class F>
 __global__ void rake_packed_kernel(const u32* __restrict__ dig,
@@ -40,67 +69,63 @@ __global__ void rake_packed_kernel(const u32* __restrict__ dig,
   long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const long long n = (long long)K * B;
-  Elem X1 = zero(), Y1 = zero(), Z1 = zero();
+  Pt acc{zero(), zero(), zero()};
   u32 prevd = SENTINEL;
   for (int k = 0; k < K; ++k) {
     const long long col = (long long)k * B + b;
-    const u32 dk = dig[col];
     Elem X2, Y2;
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
       X2.v[i] = packed[(long long)i * n + col];
       Y2.v[i] = packed[(long long)(NL + i) * n + col];
     }
-    // mixed_add_unsafe(acc, (X2, Y2)), line for line as in group_ops.cu
-    Elem Z1Z1 = sqr<F>(Z1);
-    Elem U2 = mul<F>(X2, Z1Z1);
-    Elem S2 = mul<F>(mul<F>(Y2, Z1), Z1Z1);
-    Elem H = sub<F>(U2, X1);
-    Elem HH = sqr<F>(H);
-    Elem I = add<F>(HH, HH);
-    I = add<F>(I, I);
-    Elem J = mul<F>(H, I);
-    Elem r = sub<F>(S2, Y1);
-    r = add<F>(r, r);
-    Elem V = mul<F>(X1, I);
-    Elem r2 = sqr<F>(r);
-    Elem X3 = sub<F>(sub<F>(r2, J), add<F>(V, V));
-    Elem YJ = mul<F>(Y1, J);
-    Elem Y3 = sub<F>(mul<F>(r, sub<F>(V, X3)), add<F>(YJ, YJ));
-    Elem ZH = sqr<F>(add<F>(Z1, H));
-    Elem Z3 = sub<F>(sub<F>(ZH, Z1Z1), HH);
-    const bool p_inf = is_zero(Z1);
-    const Elem one = one_mont<F>();
-    X3 = select(p_inf, X2, X3);
-    Y3 = select(p_inf, Y2, Y3);
-    Z3 = select(p_inf, one, Z3);
-    // continue the run, or restart it from this point
-    const bool same = dk == prevd;
-    X1 = select(same, X3, X2);
-    Y1 = select(same, Y3, Y2);
-    Z1 = select(same, Z3, one);
-    prevd = dk;
-    store(ox, n, col, X1);
-    store(oy, n, col, Y1);
-    store(oz, n, col, Z1);
+    rake_step<F>(acc, prevd, dig[col], X2, Y2);
+    store_pt(ox, oy, oz, n, col, acc);
+  }
+}
+
+template <class F>
+__global__ void rake_kernel(const u32* __restrict__ dig,
+                            const u32* __restrict__ px,
+                            const u32* __restrict__ py, u32* __restrict__ ox,
+                            u32* __restrict__ oy, u32* __restrict__ oz, int K,
+                            long long B) {
+  long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const long long n = (long long)K * B;
+  Pt acc{zero(), zero(), zero()};
+  u32 prevd = SENTINEL;
+  for (int k = 0; k < K; ++k) {
+    const long long col = b * K + k;
+    rake_step<F>(acc, prevd, dig[col], load(px, n, col), load(py, n, col));
+    store_pt(ox, oy, oz, n, col, acc);
   }
 }
 
 }  // namespace
 
+#define DISPATCH(field, KERNEL, ...)                                       \
+  do {                                                                     \
+    cudaStream_t s = (cudaStream_t)stream;                                 \
+    if (field == 0)                                                        \
+      KERNEL<Fr><<<blocks_for(B), THREADS, 0, s>>>(__VA_ARGS__);           \
+    else if (field == 1)                                                   \
+      KERNEL<Fq><<<blocks_for(B), THREADS, 0, s>>>(__VA_ARGS__);           \
+    else                                                                   \
+      return (int)cudaErrorInvalidValue;                                   \
+  } while (0)
+
 extern "C" {
 
 int rk_rake_packed(int field, const u32* dig, const u32* packed, u32* ox,
                    u32* oy, u32* oz, int K, long long B, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (field == 0)
-    rake_packed_kernel<Fr><<<blocks_for(B), THREADS, 0, s>>>(dig, packed, ox,
-                                                              oy, oz, K, B);
-  else if (field == 1)
-    rake_packed_kernel<Fq><<<blocks_for(B), THREADS, 0, s>>>(dig, packed, ox,
-                                                              oy, oz, K, B);
-  else
-    return (int)cudaErrorInvalidValue;
+  DISPATCH(field, rake_packed_kernel, dig, packed, ox, oy, oz, K, B);
+  return (int)cudaGetLastError();
+}
+
+int rk_rake(int field, const u32* dig, const u32* px, const u32* py, u32* ox,
+            u32* oy, u32* oz, int K, long long B, void* stream) {
+  DISPATCH(field, rake_kernel, dig, px, py, ox, oy, oz, K, B);
   return (int)cudaGetLastError();
 }
 

@@ -210,13 +210,13 @@ def from_affine(Qa, spec: FieldSpec):
     return (X, Y, one_mont_like(X, spec))
 
 
-def infinity(spec: FieldSpec, batch_shape=(), device="cpu"):
+def infinity(spec: FieldSpec, batch_shape, device):
     z = torch.zeros((spec.nlimbs,) + tuple(batch_shape), dtype=torch.int32,
                     device=device)
     return (z, z, z)
 
 
-def proj_infinity(spec: FieldSpec, batch_shape=(), device="cpu"):
+def proj_infinity(spec: FieldSpec, batch_shape, device):
     """(0 : 1 : 0) in Montgomery form."""
     z = torch.zeros((spec.nlimbs,) + tuple(batch_shape), dtype=torch.int32,
                     device=device)

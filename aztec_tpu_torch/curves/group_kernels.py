@@ -15,8 +15,8 @@ from ..ff import field_kernels as fk
 from ..ff.spec import FieldSpec
 from . import group
 
-NAMES = ("mixed_add_unsafe", "add_unsafe", "proj_add_complete", "proj_dbl_n",
-         "jacobian_to_proj", "proj_to_jacobian")
+NAMES = ("mixed_add_unsafe", "add_unsafe", "proj_add_complete", "proj_dbl",
+         "proj_dbl_n", "jacobian_to_proj", "proj_to_jacobian")
 
 
 def _b3(spec: FieldSpec, b_int: int):
@@ -43,6 +43,15 @@ def proj_add_complete(P, Q, spec: FieldSpec, b_int: int):
     b3 = _b3(spec, b_int)
     return tuple(fk.launch("group_ops", "gk_proj_add", "proj_add_complete",
                            spec, (*P, *Q), 3,
+                           extra=(ctypes.cast(b3, ctypes.c_void_p),)))
+
+
+def proj_dbl(P, spec: FieldSpec, b_int: int):
+    """One complete doubling (RCB16 algorithm 9)."""
+    if not fk.use_kernels(P[0]):
+        return group.proj_dbl(P, spec, b_int)
+    b3 = _b3(spec, b_int)
+    return tuple(fk.launch("group_ops", "gk_proj_dbl", "proj_dbl", spec, P, 3,
                            extra=(ctypes.cast(b3, ctypes.c_void_p),)))
 
 

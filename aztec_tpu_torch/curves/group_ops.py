@@ -2,11 +2,14 @@
 
 Port of aztec_tpu/curves/group_ops.py.  ``JacobianOps`` is the elliptic-
 curve instantiation (points are tuples of Montgomery limb planes); its
-formulas go through the K2 wrappers (``group_kernels.py``) and its rake
-through K3 (``msm/rake.py``), which launch CUDA kernels for CUDA tensors and
-use the plain formulas for CPU tensors.  ``IntModOps`` is a mock group
-(Z_m, +) with the same calling convention, so the pipeline's indexing logic
-is tested against plain integer sums.
+formulas go through the K2 wrappers (``group_kernels.py``), its rakes
+through K3 and K5 (``msm/rake.py``) and its bucket phase through K4
+(``msm/bucket.py``), which launch CUDA kernels for CUDA tensors and use the
+plain formulas for CPU tensors.  ``IntModOps`` is a mock group (Z_m, +) with
+the same calling convention, so the pipelines' indexing logic is tested
+against plain integer sums; its ``rake_scan``, ``pack_affine`` and
+``bucket_phase`` return None, so the MSM engine composes those phases from
+the group ops.
 """
 
 from __future__ import annotations
@@ -58,6 +61,9 @@ class JacobianOps:
     def c_add(self, P, Q):
         return gk.proj_add_complete(P, Q, self.spec, self.curve.b)
 
+    def c_dbl(self, P):
+        return gk.proj_dbl(P, self.spec, self.curve.b)
+
     def c_dbl_n(self, P, steps: int):
         return gk.proj_dbl_n(P, self.spec, self.curve.b, steps)
 
@@ -84,6 +90,23 @@ class JacobianOps:
 
         return rake.rake_scan_packed(dig_k, packed_k, B, K, self.spec)
 
+    def rake_scan(self, sd, pts, B: int, K: int):
+        """K5 over n-order sorted entries (the engine's unpacked branch)."""
+        from ..msm import rake
+
+        return rake.rake_scan(sd, pts, B, K, self.spec)
+
+    def bucket_phase(self, buckets, nbuckets: int, acc=None,
+                     dbl_steps: int = 0):
+        """K4 from Jacobian bucket planes; with ``acc`` it also folds the
+        round's shift acc' = 2^dbl_steps acc + W.  None when nbuckets is
+        not a power-of-two multiple of 1024 (the engine then composes the
+        phase from ``c_add``)."""
+        from ..msm import bucket
+
+        return bucket.bucket_phase(buckets, nbuckets, self.spec, self.curve.b,
+                                   acc, dbl_steps)
+
 
 @dataclasses.dataclass(frozen=True)
 class IntModOps:
@@ -101,6 +124,9 @@ class IntModOps:
 
     mixed_add_unsafe = add_unsafe
 
+    def dbl(self, P):
+        return ((P[0] * 2) % self.m,)
+
     def from_affine(self, Qa):
         return Qa
 
@@ -113,9 +139,22 @@ class IntModOps:
     # "projective" aliases: the mock group has one representation
     c_infinity = infinity
     c_add = add_unsafe
+    c_dbl = dbl
 
     def c_dbl_n(self, P, steps: int):
         return ((P[0] << steps) % self.m,)
+
+    def c_neg(self, P):
+        return ((-P[0]) % self.m,)
+
+    def rake_scan(self, sd, pts, B, K):
+        return None
+
+    def pack_affine(self, pts):
+        return None
+
+    def bucket_phase(self, buckets, nbuckets, acc=None, dbl_steps=0):
+        return None
 
     def j2c(self, P):
         return P

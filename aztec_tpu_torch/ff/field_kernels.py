@@ -107,6 +107,13 @@ def sub_mod(a, b, spec: FieldSpec):
     return launch("field_ops", "fk_sub_mod", "sub_mod", spec, (a, b), 1)[0]
 
 
+def mul_add(a, b, c, spec: FieldSpec):
+    """Fused a*b + c, one launch (limb.mul_add)."""
+    if _on_cpu(a, b, c):
+        return limb.mul_add(a, b, c, spec)
+    return launch("field_ops", "fk_mul_add", "mul_add", spec, (a, b, c), 1)[0]
+
+
 def butterfly(top, bot, tw, spec: FieldSpec):
     """Fused FFT butterfly (top + tw*bot, top - tw*bot), one launch."""
     if _on_cpu(top, bot, tw):

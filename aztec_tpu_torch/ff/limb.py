@@ -217,6 +217,13 @@ def mont_mul(a, b, spec: FieldSpec):
     return _elementwise(spec, KF.mul, a, b)
 
 
+def mul_add(a, b, c, spec: FieldSpec):
+    """a*b + c (Montgomery product, then modular add): pallas_field.mul_add."""
+    planes, bshape = flat(a, b, c)
+    f = kf(spec, a.device)
+    return unflat(f.add(f.mul(planes[0], planes[1]), planes[2]), bshape)
+
+
 def butterfly(top, bot, tw, spec: FieldSpec):
     """(top + tw*bot, top - tw*bot): one Stockham FFT butterfly."""
     planes, bshape = flat(top, bot, tw)
@@ -250,7 +257,7 @@ def from_mont(a, spec: FieldSpec):
     return _fk().mont_mul(a, const(one, a.dim(), a.device), spec)
 
 
-def one_mont(spec: FieldSpec, batch_shape=(), device="cpu"):
+def one_mont(spec: FieldSpec, batch_shape, device):
     c = const(spec.one_mont_limbs, 1 + len(batch_shape), device)
     return c.expand((L,) + tuple(batch_shape))
 

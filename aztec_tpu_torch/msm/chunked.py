@@ -11,10 +11,13 @@ Port of aztec_tpu/msm/chunked.py.  Per chunk of 2^chunk_log2 points:
            gathers of run tails and carries -> Jacobian bucket sums
   fold     one complete add into the running (16, R, 2^c) bucket planes
 
-Buckets accumulate across chunks; the bucket phase and the Horner fold
-over rounds run once per MSM (``_finish``).  The TPU-only staging of the
-reference (the bf16 matrix-unit histogram, ``lax.map`` slicing, K-major
-relayout tricks) becomes plain torch ops.
+The per-chunk body up to the bucket sums is the engine's packed round
+(``pippenger._packed_round_buckets``) over R rows.  Buckets accumulate
+across chunks; the bucket phase (``pippenger._bucket_phase`` over all
+rounds at once) and the Horner fold over rounds run once per MSM
+(``_finish``).  The TPU-only staging of the reference (the bf16
+matrix-unit histogram, ``lax.map`` slicing, K-major relayout tricks)
+becomes plain torch ops.
 
 Unlike the reference, a ragged tail of at most ``TAIL_MAX`` points (the
 standard-PLONK quotient's (n+1)-th coefficient) is not padded to a whole
@@ -31,144 +34,30 @@ import torch
 from ..curves.group_ops import JacobianOps
 from ..curves.spec import CurveSpec
 from . import glv as glv_mod
+from . import pippenger as pp
 
 CHUNK_LOG2 = 17   # points per chunk on the card (the table doubles under GLV)
 RAKE_K = 64       # serial rake depth; B = n_eff / K
 TAIL_MAX = 16     # ragged tails up to this many points skip the padded chunk
 
 
-def _roll(P, shift):
-    return tuple(torch.roll(a, shift, dims=-1) for a in P)
-
-
-def _hillis_seg_scan(ops, V, F):
-    """Inclusive segmented scan (group add) over the last axis of V with
-    head flags F (True = segment start); pippenger._hillis_seg_scan."""
-    B = F.shape[0]
-    steps = max((B - 1).bit_length(), 1)
-    idx = torch.arange(B, device=F.device)
-    for s in range(steps):
-        d = 1 << s
-        Vp = _roll(V, d)
-        Fp = torch.roll(F, d)
-        valid = (idx >= d) & ~F
-        combined = ops.add_unsafe(Vp, V)
-        V = ops.select(valid, combined, V)
-        F = F | torch.where(idx >= d, Fp, True)
-    return V
-
-
-def _hillis_scan(ops, V, add):
-    """Inclusive unsegmented scan over the last axis with the given add."""
-    B = V[0].shape[-1]
-    steps = max((B - 1).bit_length(), 1)
-    idx = torch.arange(B, device=V[0].device)
-    for s in range(steps):
-        d = 1 << s
-        V = ops.select(idx >= d, add(_roll(V, d), V), V)
-    return V
-
-
 def digits(scalars, c: int, R: int):
     """(L', n) canonical scalar limbs -> (R, n) int64 c-bit window digits."""
-    rows = []
-    for ri in range(R):
-        limb_row = scalars[(c * ri) // 16].to(torch.int64)
-        rows.append((limb_row >> ((c * ri) % 16)) & ((1 << c) - 1))
-    return torch.stack(rows)
+    return torch.stack([pp.window(scalars, c, ri) for ri in range(R)])
 
 
 def chunk_buckets(ops, packed16, digR, bacc, *, n: int, c: int, K: int,
                   rounds: int):
-    """ONE chunk, ALL rounds: sort1 -> rake -> carries -> tails -> fold.
+    """ONE chunk, ALL rounds: sort -> rake -> carries -> tails
+    (``pippenger._packed_round_buckets`` over R rows), then the fold into
+    the running projective bucket planes.
 
     digR: (R, n) digits; round row i reads the point table
     packed16[:, (i // rounds) * n : (i // rounds + 1) * n], so a batch of
     MSMs (one table of n entries each) runs as R = batch * rounds rows."""
-    R = digR.shape[0]
-    B = n // K
-    Bp = R * B
-    nb = 1 << c
-    dev = packed16.device
-
-    # sort1: every round's (digit, source index) pairs at once
-    sdR, idxR = torch.sort(digR, dim=1, stable=True)
-    idxR = idxR + (torch.arange(R, device=dev) // rounds)[:, None] * n
-
-    # rake: (R, n) rank-major -> (K, R*B) K-major (lane = r*B + b)
-    def kmajor(x):
-        return x.reshape(R, B, K).permute(2, 0, 1).reshape(K, Bp)
-
-    sdk = kmajor(sdR)
-    colk = kmajor(idxR).reshape(K * Bp)
-    scan = ops.rake_scan_packed(sdk, packed16.index_select(1, colk), Bp, K)
-
-    # carries: run sums crossing lane boundaries
-    T = tuple(sc[:, (K - 1) * Bp:] for sc in scan)
-    internal = (sdk[1:] != sdk[:-1]).any(0)
-    h, t = sdk[0], sdk[K - 1]
-    edge = (torch.arange(Bp, device=dev) % B) == 0
-    cont = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
-                      h[1:] == t[:-1]]) & ~edge
-    scanned = _hillis_seg_scan(ops, T, internal | ~cont)
-    C = ops.select(cont, _roll(scanned, 1), ops.infinity((Bp,)))
-
-    # tails: bucket edges from a histogram of the sorted digits
-    rid = torch.arange(R, device=dev)[:, None]
-    count = torch.bincount((sdR + rid * nb).reshape(-1),
-                           minlength=R * nb).reshape(R, nb)
-    edges = torch.cat([torch.zeros((R, 1), dtype=count.dtype, device=dev),
-                       torch.cumsum(count, dim=1)], dim=1)
-    jidx = torch.arange(nb, device=dev)[None]
-    valid = (count > 0) & (jidx > 0)
-    tc = torch.clamp(edges[:, 1:] - 1, 0, n - 1)
-    kk = tc % K
-    lane = rid * B + tc // K
-    col = (kk * Bp + lane).reshape(R * nb)
-    g = tuple(sc.index_select(1, col).reshape(-1, R, nb) for sc in scan)
-    # the bucket's run began at or before its lane's first entry: the lane's
-    # first run, so the carry into the lane belongs to it
-    frj = edges[:, :-1] <= tc - kk
-    cg = tuple(cc.index_select(1, lane.reshape(R * nb)).reshape(-1, R, nb)
-               for cc in C)
-    carry = ops.select(frj & valid, cg, ops.infinity((R, nb)))
-    bj = ops.select(valid, ops.add_unsafe(g, carry), ops.infinity((R, nb)))
-
-    # fold into the running projective bucket planes
+    bj = pp._packed_round_buckets(ops, packed16, digR, n=n, c=c, K=K,
+                                  rounds=rounds)
     return ops.c_add(bacc, ops.j2c(bj))
-
-
-def _bucket_phase_batched(ops, buckets, nbuckets: int, K2: int):
-    """W_r = sum_{j>=1} j * B_{r,j} for every round r at once, by suffix
-    sums (chunked._bucket_phase_batched).  buckets: projective planes
-    (*, R, nbuckets); returns width-(R,) planes."""
-    R = buckets[0].shape[1]
-    B2 = nbuckets // K2
-    dev = buckets[0].device
-    rb = tuple(torch.flip(b, dims=(-1,)).reshape(b.shape[:-1] + (B2, K2))
-               for b in buckets)
-    acc = ops.c_infinity((R, B2))
-    local = []
-    for k in range(K2):
-        acc = ops.c_add(acc, tuple(b[..., k] for b in rb))
-        local.append(acc)
-    local = tuple(torch.stack([pt[i] for pt in local], dim=-1)
-                  for i in range(len(acc)))                  # (*, R, B2, K2)
-
-    # exclusive carry of lane totals along B2
-    scanned = _hillis_scan(ops, acc, ops.c_add)
-    idx2 = torch.arange(B2, device=dev)
-    carry = ops.select(idx2 >= 1, _roll(scanned, 1), ops.c_infinity((R, B2)))
-    S = ops.c_add(local, tuple(cc[..., None] for cc in carry))
-    Sf = tuple(s.reshape(s.shape[:-2] + (nbuckets,)) for s in S)
-    keep = torch.arange(nbuckets, device=dev) != (nbuckets - 1)
-    sb = tuple(s.reshape(s.shape[:-1] + (B2, K2))
-               for s in ops.c_mask_to_infinity(keep, Sf))
-    colsum = ops.c_infinity((R, B2))
-    for k in range(K2):
-        colsum = ops.c_add(colsum, tuple(b[..., k] for b in sb))
-    tot = _hillis_scan(ops, colsum, ops.c_add)
-    return tuple(a[..., -1] for a in tot)                     # (*, R)
 
 
 def _finish(ops, buckets, R: int, c: int, nbuckets: int,
@@ -177,9 +66,8 @@ def _finish(ops, buckets, R: int, c: int, nbuckets: int,
     acc = 2^c acc + W_r, most significant round first.  buckets:
     (*, batch * R, nbuckets), MSM m in rows m*R .. m*R + R - 1; the result
     has width ``batch``."""
-    W = _bucket_phase_batched(ops, buckets, nbuckets,
-                              min(64, nbuckets // 1024 or 1))
-    W = tuple(w.reshape(w.shape[:-1] + (batch, R)) for w in W)
+    W = pp._bucket_phase(ops, buckets, nbuckets, min(64, nbuckets // 1024 or 1))
+    W = tuple(w.reshape(w.shape[:-2] + (batch, R)) for w in W)
     acc = ops.c_infinity((batch,))
     for ri in range(R - 1, -1, -1):
         acc = ops.c_dbl_n(acc, c)

@@ -1,15 +1,21 @@
-"""K3: the packed rake scan of the chunked MSM (``csrc/rake.cu``).
+"""K3 and K5: the rake scans of the MSM (``csrc/rake.cu``).
 
-Port of aztec_tpu/msm/rake_pallas.py ``rake_scan_packed``.  B independent
-lanes walk K sorted entries each: a lane mixed-adds the next point while
-the digit repeats and restarts from the point (Z = 1) when it changes, and
-every running partial is emitted, K-major (column k * B + b).
+Port of aztec_tpu/msm/rake_pallas.py ``rake_scan_packed`` (K3, the chunked
+pipeline's and the engine's packed branch) and ``rake_scan`` (K5, the
+engine's unpacked branch).  B independent lanes walk K sorted entries each:
+a lane mixed-adds the next point while the digit repeats and restarts from
+the point (Z = 1) when it changes, and every running partial is emitted.
+K3 reads limb-pair packed points K-major (column k * B + b); K5 reads 16-bit
+planes in n-order (column b * K + k) and emits (16, B, K).
 
-``rake_scan_packed_plain`` is the plain version (the port of
-aztec_tpu/curves/group_ops.py ``_rake_scan_packed_xla``): the same steps as
-a loop of batched plain group formulas.  The wrapper uses it only for CPU
-tensors; for CUDA tensors it launches the kernel, which keeps each lane's
-accumulator in registers across its K steps.
+``rake_scan_packed_plain`` and ``rake_scan_plain`` are the plain versions
+(the ports of aztec_tpu/curves/group_ops.py ``_rake_scan_packed_xla`` and of
+the ``lax.scan`` composition of msm/pippenger.py ``_rake_segment_scan``):
+the same steps as a loop of batched plain group formulas.  The wrappers use
+them only for CPU tensors; for CUDA tensors they launch the kernels, which
+keep each lane's accumulator in registers across its K steps.  Unlike the
+TPU's ``rake_scan``, which refuses B that are not multiples of 1024, K5
+takes any B.
 """
 
 from __future__ import annotations
@@ -37,12 +43,11 @@ def unpack(packed):
     return X, Y
 
 
-def rake_scan_packed_plain(dig_k, packed_k, B: int, K: int, spec: FieldSpec):
-    """Plain version: dig_k (K, B) digits, packed_k (16, K*B) K-major packed
-    points -> running partials (X, Y, Z), each (16, K*B) K-major."""
-    dk = dig_k.reshape(K, B)
-    X, Y = unpack(packed_k.reshape(L, K, B))
-    acc = group.infinity(spec, (B,), packed_k.device)
+def _scan(dk, X, Y, spec: FieldSpec):
+    """The lanes' steps: dk (K, B) digits, X, Y (16, K, B) affine points ->
+    running partials (X, Y, Z), each (16, K, B)."""
+    K, B = dk.shape
+    acc = group.infinity(spec, (B,), X.device)
     accd = torch.full((B,), SENTINEL, dtype=dk.dtype, device=dk.device)
     outs = ([], [], [])
     for k in range(K):
@@ -54,7 +59,55 @@ def rake_scan_packed_plain(dig_k, packed_k, B: int, K: int, spec: FieldSpec):
         accd = dk[k]
         for o, c in zip(outs, acc):
             o.append(c)
-    return tuple(torch.stack(o, dim=1).reshape(L, K * B) for o in outs)
+    return tuple(torch.stack(o, dim=1) for o in outs)
+
+
+def rake_scan_packed_plain(dig_k, packed_k, B: int, K: int, spec: FieldSpec):
+    """Plain version of K3: dig_k (K, B) digits, packed_k (16, K*B) K-major
+    packed points -> running partials (X, Y, Z), each (16, K*B) K-major."""
+    X, Y = unpack(packed_k.reshape(L, K, B))
+    return tuple(o.reshape(L, K * B)
+                 for o in _scan(dig_k.reshape(K, B), X, Y, spec))
+
+
+def rake_scan_plain(sd, pts, B: int, K: int, spec: FieldSpec):
+    """Plain version of K5: sd (n,) sorted digits, pts (X, Y) (16, n) in the
+    same order, entry (b, k) at n-order column b * K + k -> running partials
+    (X, Y, Z), each (16, B, K)."""
+    def kmajor(p):
+        return p.reshape(L, B, K).transpose(1, 2)
+
+    X, Y = pts
+    outs = _scan(sd.reshape(B, K).T, kmajor(X), kmajor(Y), spec)
+    return tuple(o.transpose(1, 2) for o in outs)
+
+
+def rake_scan(sd, pts, B: int, K: int, spec: FieldSpec):
+    """K5 wrapper: plain version for CPU tensors, the kernel for CUDA."""
+    X, Y = pts
+    if not fk.use_kernels(X):
+        return rake_scan_plain(sd, pts, B, K, spec)
+    n = K * B
+    if sd.numel() != n or any(tuple(p.shape) != (L, n) for p in pts):
+        raise ValueError(f"rake_scan: expected {n} digits and (16, {n}) "
+                         f"points, got {tuple(sd.shape)}, "
+                         f"{[tuple(p.shape) for p in pts]}")
+    if (X.dtype != torch.int32 or Y.dtype != torch.int32
+            or not (sd.device == X.device == Y.device)):
+        raise ValueError("rake_scan: expected int32 points and digits on one "
+                         "device")
+    dig = sd.reshape(n).to(torch.int32).contiguous()
+    px, py = X.contiguous(), Y.contiguous()
+    outs = [torch.empty((L, B, K), dtype=torch.int32, device=X.device)
+            for _ in range(3)]
+    if n:
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        rc = native.library("rake").rk_rake(
+            fk.field_id(spec), dig.data_ptr(), px.data_ptr(), py.data_ptr(),
+            *[o.data_ptr() for o in outs], int(K), int(B), stream)
+        native.check(rc, "rk_rake")
+        fk.LAUNCHES["rake_scan"] += 1
+    return tuple(outs)
 
 
 def rake_scan_packed(dig_k, packed_k, B: int, K: int, spec: FieldSpec):

@@ -21,8 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build" / "aztec_tpu_torch"
-SOURCES = ("field_ops", "group_ops", "rake")
-HEADERS = ("field.cuh",)
+SOURCES = ("field_ops", "group_ops", "rake", "bucket")
+HEADERS = ("field.cuh", "group.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -37,17 +37,23 @@ SIGNATURES = {
         "fk_add_mod": [_I, _P, _P, _P, _LL, _P],
         "fk_sub_mod": [_I, _P, _P, _P, _LL, _P],
         "fk_butterfly": [_I, _P, _P, _P, _P, _P, _LL, _P],
+        "fk_mul_add": [_I, _P, _P, _P, _P, _LL, _P],
     },
     "group_ops": {
         "gk_mixed_add": [_I] + [_P] * 8 + [_LL, _P],
         "gk_add_unsafe": [_I] + [_P] * 9 + [_LL, _P],
         "gk_proj_add": [_I] + [_P] * 10 + [_LL, _P],
+        "gk_proj_dbl": [_I] + [_P] * 7 + [_LL, _P],
         "gk_proj_dbl_n": [_I] + [_P] * 7 + [_I, _LL, _P],
         "gk_j2c": [_I] + [_P] * 6 + [_LL, _P],
         "gk_c2j": [_I] + [_P] * 6 + [_LL, _P],
     },
     "rake": {
         "rk_rake_packed": [_I, _P, _P, _P, _P, _P, _I, _LL, _P],
+        "rk_rake": [_I] + [_P] * 6 + [_I, _LL, _P],
+    },
+    "bucket": {
+        "bk_bucket_phase": [_I] + [_P] * 11 + [_I, _I, _P],
     },
 }
 

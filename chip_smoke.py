@@ -10,11 +10,16 @@ exits non-zero):
 
 1. the card's name and power limit, and the build of the CUDA kernels
    (``aztec_tpu_torch/csrc``, one nvcc per source, all at once);
-2. every kernel (K1 field ops, K2 group formulas, K3 rake) against its plain
-   PyTorch version on the same inputs at the main path's shapes, bit-exact
-   on the limbs, with kernel and plain times;
-3. an MSM of 2^20 points of the committed dev-SRS table against the golden
-   (sum k_i tau^i) * G computed on the host;
+2. every kernel (K1 field ops, K2 group formulas, K3 and K5 rakes, K4
+   bucket phase) against its plain PyTorch version on the same inputs at
+   its path's shapes, bit-exact on the limbs, with kernel and plain times;
+
+then the paths, each with the launch counts cleared just before it and
+read just after:
+
+3. an MSM of 2^20 points of the committed dev-SRS table through the
+   chunked pipeline against the golden (sum k_i tau^i) * G computed on
+   the host;
 4. the main path: the 2^17-gate Standard-PLONK chain circuit of
    tools/cross_verify_big.py, proved on the card; its 8 verification-key
    commitments must equal artifacts/cross_verify_2pow17_ref_output.log
@@ -22,9 +27,21 @@ exits non-zero):
    port's verifier and a tampered copy must fail;
 5. warm proofs of that circuit with the port's MSM paths (ragged tail
    mixed-added into the buckets, a barrier's MSMs batched) and the
-   reference's (tail padded to a chunk, one MSM at a time), same bytes;
-6. a JSON line with every kernel's launches on the main path, times and
-   bound, then the card's name and power limit, then the result line.
+   reference's (tail padded to a chunk, one MSM at a time), same bytes
+   (timing only: its launches are not counted);
+6. the MSM engine at full width: phase 3's MSM through
+   ``msm(..., MSMConfig(c=16, block=64, bucket_block=64, glv=True))`` (the
+   packed branch: K3 and K4 once a round) and through the staged rounds,
+   both equal to the golden;
+7. a 2^11-point MSM at the reference's small tier (the engine's unpacked
+   branch: K5 once a round) against the golden;
+8. the 2^20-point dev SRS from ``fixed_base_mul`` (K2 ``proj_dbl``)
+   against the committed table, bit for bit;
+9. the chain circuit at 2^20 gates, whose SRS of 2^20 + 1 points comes
+   from ``fixed_base_mul``: proved, verified, a tamper rejected;
+10. a JSON line with every kernel's launches summed over the paths, times
+    and bound, then the card's name and power limit, then the result
+    line.
 
 Exits 2 without a result when CUDA is missing or the package is not beside
 this script.
@@ -85,7 +102,19 @@ KERNELS = {
     # per entry: a 4-byte digit and a packed point in, 3 planes out
     "rake_scan_packed": ("rake.cu", "aztec_tpu/msm/rake_pallas.py:138", 0, 0,
                          (11, 14)),
+    # per entry: a 4-byte digit and an affine point in, 3 planes out
+    "rake_scan": ("rake.cu", "aztec_tpu/msm/rake_pallas.py:48", 0, 0,
+                  (11, 14)),
+    # operation totals depend on the lane split: counted in check_new_kernels
+    "bucket_phase": ("bucket.cu", "aztec_tpu/msm/bucket_pallas.py:64", 3, 0,
+                     (0, 0)),
+    "proj_dbl": ("group_ops.cu", "aztec_tpu/curves/group_pallas.py:160", 3, 3,
+                 (9, 9)),
+    "mul_add": ("field_ops.cu", "aztec_tpu/ff/pallas_field.py:369", 3, 1,
+                (1, 1)),
 }
+# mul_add has no caller in either package: its entry counts only its check
+NO_PATH = ("mul_add",)
 
 # The main path's widest work-queue barrier: the three wire (or the three
 # quotient) commitments of the 2^17 proof run as one batch of MSMs over one
@@ -148,17 +177,39 @@ def int_ops_per_s() -> float:
 
 
 def bound_ms(name: str, elems: int, rate: float, steps: int = 1,
-             extra_bytes: int = 0, nbytes: int | None = None):
+             extra_bytes: int = 0, nbytes: int | None = None,
+             products: tuple | None = None):
     """Least milliseconds for the work: each input read once and each output
     written once at the memory rate, or the multiply-adds (or, where more,
-    the adds) at the integer rate, whichever is longer."""
+    the adds) at the integer rate, whichever is longer.  ``products``
+    (Montgomery products, field adds) gives the totals where they are not
+    a per-element count times ``steps * elems``."""
     _, _, ins, outs, (muls, adds) = KERNELS[name]
     if nbytes is None:
         nbytes = (ins + outs) * PLANE_BYTES * elems
+    if products is None:
+        products = (muls * steps * elems, adds * steps * elems)
     t_bytes = (nbytes + extra_bytes) / HBM_BYTES_PER_S * 1e3
-    ops = max(muls * MUL_OPS, adds * ADD_OPS) * steps * elems
+    ops = max(products[0] * MUL_OPS, products[1] * ADD_OPS)
     t_ops = ops / rate * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def record(results: dict, rate: float, name, kern, plain, elems, steps=1,
+           extra_bytes=0, nbytes=None, products=None, iters=5):
+    """Time kern() (mean of ``iters`` after a warm-up) and plain() (one run
+    after a warm-up) on the same inputs, require equal outputs, and keep
+    the numbers of the kernels line."""
+    ms, out_k = timed(kern, iters)
+    plain_ms, out_p = timed(plain, 1)
+    err = max_abs_err(out_k, out_p)
+    bnd, by = bound_ms(name, elems, rate, steps, extra_bytes, nbytes, products)
+    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bnd, "bound_by": by, "elems": elems}
+    log(f"kernel {name}: {elems} elems max_abs_err={err} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.2f} bound_ms={bnd:.4f} ({by})")
+    if err != 0:
+        raise AssertionError(f"{name}: kernel differs from plain version")
 
 
 def random_field(gen, shape, device, zero_lanes: bool = False):
@@ -182,8 +233,11 @@ def random_field(gen, shape, device, zero_lanes: bool = False):
     return x
 
 
-def check_kernels(results: dict) -> None:
-    """Phase 2: each kernel vs its plain version at main-path shapes."""
+def check_kernels(results: dict, rate: float) -> None:
+    """Phase 2: each kernel of the 2^17 proof vs its plain version at
+    main-path shapes."""
+    import functools
+
     import torch
 
     from aztec_tpu_torch.curves import group
@@ -197,21 +251,7 @@ def check_kernels(results: dict) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     b = BN254_G1.b
-    rate = int_ops_per_s()
-    log(f"int32 multiply-add peak: {rate:.4g} per s")
-
-    def record(name, kern, plain, elems, steps=1, extra_bytes=0, nbytes=None,
-               iters=5):
-        ms, out_k = timed(kern, iters)
-        plain_ms, out_p = timed(plain, 1)
-        err = max_abs_err(out_k, out_p)
-        bnd, by = bound_ms(name, elems, rate, steps, extra_bytes, nbytes)
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bnd, "bound_by": by, "elems": elems}
-        log(f"kernel {name}: {elems} elems max_abs_err={err} ms={ms:.4f} "
-            f"plain_ms={plain_ms:.2f} bound_ms={bnd:.4f} ({by})")
-        if err != 0:
-            raise AssertionError(f"{name}: kernel differs from plain version")
+    record_ = functools.partial(record, results, rate)
 
     # K1 at the quotient's 4n = 2^19 width; the butterfly at one 4n stage
     n4 = 1 << 19
@@ -225,7 +265,7 @@ def check_kernels(results: dict) -> None:
             ("sub_mod", fk.sub_mod, limb.sub_mod),
         ):
             if spec is FR:
-                record(name, lambda: kern(a, c, spec), lambda: plain(a, c, spec),
+                record_(name, lambda: kern(a, c, spec), lambda: plain(a, c, spec),
                        n4)
             else:
                 err = max_abs_err(kern(a, c, spec), plain(a, c, spec))
@@ -238,7 +278,7 @@ def check_kernels(results: dict) -> None:
     top = random_field(gen, ((1 << 18) // Lt, Lt), dev)
     bot = random_field(gen, ((1 << 18) // Lt, Lt), dev)
     tw = random_field(gen, (Lt,), dev)[:, None, :]
-    record("butterfly", lambda: fk.butterfly(top, bot, tw, FR),
+    record_("butterfly", lambda: fk.butterfly(top, bot, tw, FR),
            lambda: limb.butterfly(top, bot, tw, FR), 1 << 18,
            extra_bytes=Lt * PLANE_BYTES)
 
@@ -251,23 +291,23 @@ def check_kernels(results: dict) -> None:
     rows = PROOF_BATCH * 128 // WINDOW      # batch x GLV rounds: 24
     wide = rows << WINDOW   # tails (bucket sums) and fold over rows x 2^c
     P, Q = pts(wide), pts(wide)
-    record("add_unsafe", lambda: gk.add_unsafe(P, Q, FQ),
+    record_("add_unsafe", lambda: gk.add_unsafe(P, Q, FQ),
            lambda: group.add_unsafe(P, Q, FQ), wide)
-    record("proj_add_complete", lambda: gk.proj_add_complete(P, Q, FQ, b),
+    record_("proj_add_complete", lambda: gk.proj_add_complete(P, Q, FQ, b),
            lambda: group.proj_add_complete(P, Q, FQ, b), wide)
-    record("jacobian_to_proj", lambda: gk.jacobian_to_proj(P, FQ),
+    record_("jacobian_to_proj", lambda: gk.jacobian_to_proj(P, FQ),
            lambda: group.jacobian_to_proj(P, FQ), wide)
     del P, Q
     # Horner fold: one lane per MSM, 16 doublings a launch
     narrow = pts(PROOF_BATCH)
-    record("proj_dbl_n", lambda: gk.proj_dbl_n(narrow, FQ, b, WINDOW),
+    record_("proj_dbl_n", lambda: gk.proj_dbl_n(narrow, FQ, b, WINDOW),
            lambda: group.proj_dbl_n(narrow, FQ, b, WINDOW), PROOF_BATCH,
            steps=WINDOW)
-    record("proj_to_jacobian", lambda: gk.proj_to_jacobian(narrow, FQ),
+    record_("proj_to_jacobian", lambda: gk.proj_to_jacobian(narrow, FQ),
            lambda: group.proj_to_jacobian(narrow, FQ), PROOF_BATCH)
     # the quotient's ragged tail: one lane per (MSM, round)
     tail, tq = pts(rows), pts(rows)
-    record("mixed_add_unsafe",
+    record_("mixed_add_unsafe",
            lambda: gk.mixed_add_unsafe(tail, tq[:2], FQ),
            lambda: group.mixed_add_unsafe(tail, tq[:2], FQ), rows)
     # the same formulas at 2^14 points with infinity lanes (bit-exactness)
@@ -299,14 +339,101 @@ def check_kernels(results: dict) -> None:
 
     packed = JacobianOps(BN254_G1, dev).pack_affine((Xa, Ya))
     nbytes = K * B * (4 + PLANE_BYTES + 3 * PLANE_BYTES)
-    record("rake_scan_packed",
+    record_("rake_scan_packed",
            lambda: rake.rake_scan_packed(dig, packed, B, K, FQ),
            lambda: rake.rake_scan_packed_plain(dig, packed, B, K, FQ),
            K * B, nbytes=nbytes, iters=3)
 
 
-def check_msm(log2n: int = 20, device: str = "cuda") -> None:
-    """Phase 3: 2^20-point MSM of the committed table vs the host golden."""
+def check_new_kernels(results: dict, rate: float) -> None:
+    """Phase 2, this slice's kernels (K4, K5, K2 proj_dbl, K1 mul_add) vs
+    their plain versions at their paths' shapes."""
+    import functools
+
+    import torch
+
+    from aztec_tpu_torch.curves import group
+    from aztec_tpu_torch.curves import group_kernels as gk
+    from aztec_tpu_torch.curves.spec import BN254_G1
+    from aztec_tpu_torch.ff import FQ, FR, limb
+    from aztec_tpu_torch.ff import field_kernels as fk
+    from aztec_tpu_torch.msm import bucket, rake
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    b = BN254_G1.b
+    record_ = functools.partial(record, results, rate)
+
+    def pts(w, zero=True):
+        return tuple(random_field(gen, (w,), dev, zero_lanes=(zero and i == 2))
+                     for i in range(3))
+
+    # K4: one round of the 2^20 engine MSM (2^16 buckets, acc' = 2^16 acc +
+    # W), every 16th bucket at infinity
+    nb, steps = 1 << WINDOW, WINDOW
+    bk, acc = pts(nb), pts(1, zero=False)
+    lanes, groups = bucket.LANES, bucket.GROUPS
+    k2 = nb // lanes
+    adds = 3 * lanes + 4 * groups + 3          # complete adds of the combine
+    dbls = (lanes // groups).bit_length() - 1 + k2.bit_length() - 1 + steps
+    products = (nb * (3 + 2 * 14) + adds * 14 + dbls * 9,
+                nb * 2 * 19 + adds * 19 + dbls * 9)
+    plain_ops = bucket.PlainOps(FQ, b, dev)
+    record_("bucket_phase",
+            lambda: bucket.bucket_phase(bk, nb, FQ, b, acc, steps),
+            lambda: bucket.bucket_phase_plain(plain_ops, bk, nb, acc, steps),
+            nb, nbytes=(3 * nb + 6) * PLANE_BYTES, products=products)
+    for n_b, a_, st in ((1024, None, 0), (2048, acc, 3)):
+        small = pts(n_b)
+        err = max_abs_err(bucket.bucket_phase(small, n_b, FQ, b, a_, st),
+                          bucket.bucket_phase_plain(plain_ops, small, n_b, a_,
+                                                    st))
+        log(f"kernel bucket_phase: {n_b} buckets dbl_steps={st} "
+            f"max_abs_err={err}")
+        if err:
+            raise AssertionError(f"bucket_phase differs at {n_b} buckets")
+
+    # K5 at the 2^11-point tier (GLV, K = 32, so B = 128 lanes, digits of
+    # c = 4), then at B = 1024, K = 64
+    for B, K, top, timed_ in ((128, 32, 16, True), (1024, 64, 4, False)):
+        sd = torch.sort(torch.randint(0, top, (B * K,), generator=gen,
+                                      device=dev)).values
+        X, Y = random_field(gen, (B * K,), dev), random_field(gen, (B * K,), dev)
+        kern = functools.partial(rake.rake_scan, sd, (X, Y), B, K, FQ)
+        plain = functools.partial(rake.rake_scan_plain, sd, (X, Y), B, K, FQ)
+        if timed_:
+            record_("rake_scan", kern, plain, B * K,
+                    nbytes=B * K * (4 + 2 * PLANE_BYTES + 3 * PLANE_BYTES))
+        else:
+            err = max_abs_err(kern(), plain())
+            log(f"kernel rake_scan: B={B} K={K} max_abs_err={err}")
+            if err:
+                raise AssertionError(f"rake_scan differs at B={B}, K={K}")
+
+    # K2 proj_dbl at its path's width 1 (the fixed-base base point), then at
+    # 2^14 points with infinity lanes
+    one = pts(1, zero=False)
+    record_("proj_dbl", lambda: gk.proj_dbl(one, FQ, b),
+            lambda: group.proj_dbl(one, FQ, b), 1)
+    wide = pts(1 << 14)
+    err = max_abs_err(gk.proj_dbl(wide, FQ, b), group.proj_dbl(wide, FQ, b))
+    log(f"kernel proj_dbl: {1 << 14} points with infinity lanes "
+        f"max_abs_err={err}")
+    if err:
+        raise AssertionError("proj_dbl differs at 2^14")
+
+    # K1 mul_add at the quotient's 4n width
+    n4 = 1 << 19
+    x, y, z = (random_field(gen, (n4,), dev) for _ in range(3))
+    record_("mul_add", lambda: fk.mul_add(x, y, z, FR),
+            lambda: limb.mul_add(x, y, z, FR), n4)
+
+
+def check_msm(log2n: int = 20, device: str = "cuda"):
+    """Phase 3: 2^20-point MSM of the committed table vs the host golden.
+    Returns the case, for the engine's phase: ((X, Y), scalars, golden
+    affine point)."""
     import numpy as np
     import torch
 
@@ -346,6 +473,125 @@ def check_msm(log2n: int = 20, device: str = "cuda") -> None:
         raise AssertionError(f"2^{log2n} MSM differs from the host golden")
     log(f"msm 2^{log2n}: golden OK cold_s={cold:.3f} warm_s={warm:.3f} "
         f"points_per_s={n / warm:.0f}")
+    return (X, Y), S, expect
+
+
+def timed_msm(label: str, fn, n: int, device: str = "cuda"):
+    """Run fn() cold and warm (host clock around a synchronised run); print
+    seconds, points/s and the warm run's kernel launches.  Returns the
+    warm result."""
+    import torch
+
+    from aztec_tpu_torch.ff import field_kernels as fk
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    cold = time.perf_counter() - t0
+    before = dict(fk.LAUNCHES)
+    t0 = time.perf_counter()
+    P = fn()
+    sync()
+    warm = time.perf_counter() - t0
+    per = {k: v - before.get(k, 0) for k, v in fk.LAUNCHES.items()
+           if v - before.get(k, 0)}
+    log(f"{label}: cold_s={cold:.3f} warm_s={warm:.3f} "
+        f"points_per_s={n / warm:.0f} launches per MSM "
+        f"{json.dumps(per, sort_keys=True)}")
+    return P, per
+
+
+def check_engine(case, device: str = "cuda", c: int = 16, K: int = 64):
+    """Phase 6: the jit MSM engine at full width: the 2^20 points of phase 3
+    through msm(..., MSMConfig(c=16, block=64, bucket_block=64, glv=True))
+    (the packed branch: B = 2^21 / 64 = 32768 lanes, 8 rounds, K3 and K4
+    each once a round) and through the host-driven staged rounds; both
+    equal the golden, which the chunked pipeline met in phase 3."""
+    from aztec_tpu_torch.curves.io import jacobian_to_host
+    from aztec_tpu_torch.curves.spec import BN254_G1
+    from aztec_tpu_torch.msm import bucket, staged
+    from aztec_tpu_torch.msm.pippenger import MSMConfig, msm
+
+    (X, Y), S, expect = case
+    n = X.shape[1]
+    cfg = MSMConfig(c=c, block=K, bucket_block=64, glv=True)
+    want = {"rake_scan_packed": cfg.rounds()}
+    if bucket.supported(1 << c):
+        want["bucket_phase"] = cfg.rounds()
+    for label, fn in (
+        ("engine", lambda: msm((X, Y), S, BN254_G1, cfg)),
+        ("staged", lambda: staged.msm_staged((X, Y), S, BN254_G1, n, c, K,
+                                             True)),
+    ):
+        P, per = timed_msm(f"msm {label} 2^{n.bit_length() - 1}", fn, n,
+                           device)
+        if jacobian_to_host(P, BN254_G1)[0] != expect:
+            raise AssertionError(f"{label} MSM differs from the golden and "
+                                 "the chunked pipeline")
+        if device == "cuda" and any(per.get(k) != v for k, v in want.items()):
+            raise AssertionError(f"{label} MSM launches {per}, expected {want}")
+    log(f"msm engine and staged 2^{n.bit_length() - 1}: golden OK, equal to "
+        "the chunked pipeline in affine")
+
+
+def check_small_tier(log2n: int = 11, device: str = "cuda") -> None:
+    """Phase 7: the reference's small tier MSMConfig(c=4, block=32,
+    bucket_block=4, glv=True) at 2^11 points: the engine's unpacked branch
+    (B = 128 lanes, 32 rounds of K5, the composed bucket phase)."""
+    import numpy as np
+    import torch
+
+    from aztec_tpu_torch.curves import golden
+    from aztec_tpu_torch.curves.io import jacobian_to_host
+    from aztec_tpu_torch.curves.spec import BN254_G1
+    from aztec_tpu_torch.msm.pippenger import MSMConfig, msm
+    from aztec_tpu_torch.numeric.bigint import ints_to_limbs
+    from aztec_tpu_torch.srs.reference_string import DEV_TAU, load_point_table
+
+    n = 1 << log2n
+    r = BN254_G1.order
+    X, Y = (torch.as_tensor(p.astype(np.int32), device=device)
+            for p in load_point_table(n))
+    rnd = random.Random(SEED + 2)
+    ks = [rnd.randrange(r) for _ in range(n)]
+    S = torch.as_tensor(ints_to_limbs(ks).astype(np.int32), device=device)
+    cfg = MSMConfig(c=4, block=32, bucket_block=4, glv=True)
+    P, per = timed_msm(f"msm engine small tier 2^{log2n}",
+                       lambda: msm((X, Y), S, BN254_G1, cfg), n, device)
+    kk = sum(k * pow(DEV_TAU, i, r) for i, k in enumerate(ks)) % r
+    expect = golden.GoldenCurve(BN254_G1).mul(kk, (BN254_G1.gen_x,
+                                                   BN254_G1.gen_y))
+    if jacobian_to_host(P, BN254_G1)[0] != expect:
+        raise AssertionError(f"2^{log2n} small-tier MSM differs from golden")
+    if device == "cuda" and per.get("rake_scan") != 128 // 4:
+        raise AssertionError(f"small tier: {per.get('rake_scan')} rake_scan "
+                             "launches, expected 32")
+    log(f"msm engine small tier 2^{log2n}: golden OK")
+
+
+def check_fixed_base(log2n: int = 20, device: str = "cuda") -> None:
+    """Phase 8: fixed_base_mul (w = 8) of tau^i, i < 2^20, through
+    to_affine (the SRS factory's device path) equals the committed table
+    bit for bit."""
+    import numpy as np
+    import torch
+
+    from aztec_tpu_torch.srs.reference_string import (
+        FakeReferenceStringFactory, load_point_table)
+
+    n = 1 << log2n
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    srs = FakeReferenceStringFactory(device=device).device_prover_srs(n)
+    sync()
+    secs = time.perf_counter() - t0
+    X, Y = load_point_table(n)
+    for got, want in ((srs.X, X), (srs.Y, Y)):
+        if not np.array_equal(got.cpu().numpy(), want.astype(np.int32)):
+            raise AssertionError("fixed_base_mul differs from the point table")
+    log(f"srs fixed_base 2^{log2n}: equal to the committed table bit for "
+        f"bit; seconds={secs:.2f}")
 
 
 def build_chain(log2n: int, device: str = "cuda"):
@@ -407,8 +653,12 @@ def profile_proof(c) -> float:
     return busy_ms
 
 
-def main_path(log2n: int = 17, device: str = "cuda") -> None:
-    """Phase 4: the 2^17 chain proof, VK against barretenberg's log."""
+def main_path(log2n: int = 17, device: str = "cuda", profile: bool = True):
+    """Phase 4 (and 9 at 2^20 gates): the chain proof; at 2^17 gates its VK
+    against barretenberg's log.  Beyond 2^20 - 1 gates the SRS of 2^20 + 1
+    points comes from the device fixed-base path, and its first 2^20
+    points must equal the committed table."""
+    import numpy as np
     import torch
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
@@ -428,6 +678,19 @@ def main_path(log2n: int = 17, device: str = "cuda") -> None:
     prover = c.create_prover()
     sync()
     t_key = time.perf_counter() - t0
+    if log2n >= 20:
+        from aztec_tpu_torch.srs.reference_string import (TABLE_MAX,
+                                                          load_point_table)
+
+        srs = c.compute_proving_key().srs
+        X, Y = load_point_table(TABLE_MAX)
+        if not (np.array_equal(srs.X[:, :TABLE_MAX].cpu().numpy(),
+                               X.astype(np.int32))
+                and np.array_equal(srs.Y[:, :TABLE_MAX].cpu().numpy(),
+                                   Y.astype(np.int32))):
+            raise AssertionError("the fixed-base SRS differs from the table")
+        log(f"main path 2^{log2n}: SRS of {srs.size} points from "
+            "fixed_base_mul; its first 2^20 equal the committed table")
     t0 = time.perf_counter()
     proof = prover.construct_proof()
     sync()
@@ -440,7 +703,7 @@ def main_path(log2n: int = 17, device: str = "cuda") -> None:
     warm = time.perf_counter() - t0
     per_proof = {k: v - before.get(k, 0) for k, v in fk.LAUNCHES.items()}
     log(f"launches per proof: {json.dumps(per_proof, sort_keys=True)}")
-    if device == "cuda":
+    if device == "cuda" and profile:
         busy_ms = profile_proof(c)
         log(f"device idle share of the unprofiled warm proof: "
             f"{1 - busy_ms / (warm * 1e3):.3f}")
@@ -453,14 +716,15 @@ def main_path(log2n: int = 17, device: str = "cuda") -> None:
                                  f"{pt} (barretenberg)")
     verifier = c.create_verifier()
     if not (verifier.verify_proof(proof) and verifier.verify_proof(proof2)):
-        raise AssertionError("the port's verifier rejects the 2^17 proof")
+        raise AssertionError(f"the port's verifier rejects the 2^{log2n} proof")
     bad = bytearray(proof)
     bad[len(bad) // 2] ^= 1
     if verifier.verify_proof(bytes(bad)):
         raise AssertionError("a tampered proof verified")
-    log(f"main path 2^{log2n}: 8 VK commitments equal barretenberg's, proof "
-        f"verifies, tamper rejected; key_s={t_key:.2f} prove_cold_s={cold:.2f} "
-        f"prove_warm_s={warm:.2f} vk_s={t_vk:.2f}")
+    vk_note = "8 VK commitments equal barretenberg's, " if log2n == 17 else ""
+    log(f"main path 2^{log2n}: {vk_note}proof verifies, tamper rejected; "
+        f"key_s={t_key:.2f} prove_cold_s={cold:.2f} prove_warm_s={warm:.2f} "
+        f"vk_s={t_vk:.2f}")
     return c
 
 
@@ -546,29 +810,57 @@ def run() -> int:
     t_build = native.build()
     log(f"build: {t_build:.1f}s for {', '.join(native.SOURCES)}")
 
+    rate = int_ops_per_s()
+    log(f"int32 multiply-add peak: {rate:.4g} per s")
     results = {}
-    check_kernels(results)
-    check_msm()
+    check_kernels(results, rate)
+    check_new_kernels(results, rate)
 
-    fk.LAUNCHES.clear()
-    c = main_path()
-    launches = dict(fk.LAUNCHES)
+    # each path runs with the counts set to 0 just before it and read just
+    # after; the kernels line sums them
+    pr1 = [k for k in KERNELS
+           if k not in ("rake_scan", "bucket_phase", "proj_dbl", "mul_add")]
+    paths = {}
+
+    def path(name, required, fn, *args):
+        fk.LAUNCHES.clear()
+        out = fn(*args)
+        paths[name] = dict(fk.LAUNCHES)
+        log(f"path {name} launches: {json.dumps(paths[name], sort_keys=True)}")
+        missing = [k for k in required if not paths[name].get(k)]
+        if missing:
+            raise AssertionError(f"path {name} never launched {missing}")
+        return out
+
+    case = path("msm_chunked_2pow20", ["rake_scan_packed"], check_msm)
+    c = path("proof_2pow17", pr1, main_path)
     compare_msm_paths(c)
+    del c
+    path("msm_engine_2pow20", ["rake_scan_packed", "bucket_phase"],
+         check_engine, case)
+    del case
+    path("msm_engine_2pow11", ["rake_scan"], check_small_tier)
+    path("srs_fixed_base_2pow20", ["proj_dbl", "proj_add_complete"],
+         check_fixed_base)
+    path("proof_2pow20", pr1 + ["proj_dbl"], main_path, 20, "cuda", False)
 
     kernels = []
     for name, (src, replaces, *_rest) in KERNELS.items():
         r = results[name]
+        on = [p for p, counts in paths.items() if counts.get(name)]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"aztec_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": launches.get(name, 0), "max_abs_err": r["max_abs_err"],
+            "launches": sum(counts.get(name, 0) for counts in paths.values()),
+            "path": on or None, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
         })
-    missing = [k["name"] for k in kernels if k["launches"] == 0]
+    missing = [k["name"] for k in kernels
+               if k["launches"] == 0 and k["name"] not in NO_PATH]
     log(json.dumps({"kernels": kernels}))
     if missing:
-        log(f"kernels never launched on the main path: {missing}")
+        log(f"kernels never launched on any path: {missing}")
         return 1
     log(card)
     log(json.dumps({"ok": True, "device": {

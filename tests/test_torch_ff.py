@@ -82,6 +82,8 @@ def _jax_results(name):
             "mont_pow": jlimb.mont_pow(A, POW_BITS, jspec),
             "inv_mont": jlimb.inv_mont(A, jspec),
             "batch_inv_mont": jlimb._raw_batch_inv_mont(A, jspec, -1),
+            "mul_add": jlimb._raw_add_mod(jlimb._raw_mont_mul(A, B, jspec),
+                                          A[:, ::-1], jspec),
         }
 
     return {k: np.asarray(v) for k, v in run(A, B, cols).items()}
@@ -117,12 +119,14 @@ def _port(name, fn):
         return limb.is_zero(A)
     if fn == "mont_pow":
         return limb.mont_pow(A, POW_BITS, spec)
+    if fn == "mul_add":
+        return limb.mul_add(A, B, A.flip(1), spec)
     raise KeyError(fn)
 
 
 FUNCS = ("canon", "canon_carry", "add_mod", "sub_mod", "neg_mod", "mont_mul",
          "mont_sqr", "to_mont", "from_mont", "select", "eq", "is_zero",
-         "mont_pow", "inv_mont", "batch_inv_mont")
+         "mont_pow", "inv_mont", "batch_inv_mont", "mul_add")
 
 
 @pytest.mark.parametrize("field", sorted(SPECS))
@@ -167,6 +171,7 @@ def test_field_kernel_wrappers_use_plain_version_on_cpu(field):
     assert torch.equal(fk.mont_mul(A, B, spec), limb.mont_mul(A, B, spec))
     assert torch.equal(fk.add_mod(A, B, spec), limb.add_mod(A, B, spec))
     assert torch.equal(fk.sub_mod(A, B, spec), limb.sub_mod(A, B, spec))
+    assert torch.equal(fk.mul_add(A, B, A, spec), limb.mul_add(A, B, A, spec))
     tw = B[:, :1]
     plus, minus = fk.butterfly(A, B, tw, spec)
     t = limb.mont_mul(B, tw, spec)
@@ -204,3 +209,5 @@ def test_k1_kernels_match_plain_on_card(field):
     for fn in ("mont_mul", "add_mod", "sub_mod"):
         assert torch.equal(getattr(fk, fn)(A, B, spec).cpu(),
                            getattr(limb, fn)(A.cpu(), B.cpu(), spec))
+    assert torch.equal(fk.mul_add(A, B, A.flip(1), spec).cpu(),
+                       limb.mul_add(A.cpu(), B.cpu(), A.flip(1).cpu(), spec))

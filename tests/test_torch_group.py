@@ -74,7 +74,7 @@ def _data():
 
 
 FORMULAS = ("mixed_add_unsafe", "add_unsafe", "proj_add_complete",
-            "proj_dbl_n", "jacobian_to_proj", "proj_to_jacobian")
+            "proj_dbl", "proj_dbl_n", "jacobian_to_proj", "proj_to_jacobian")
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,6 +94,7 @@ def _jax_results():
             "add_unsafe": jgroup.add_unsafe(a["P"], a["Q"], JFQ),
             "proj_add_complete": jgroup.proj_add_complete(a["Pc"], a["Qc"],
                                                           JFQ, B),
+            "proj_dbl": jgroup.proj_dbl(a["Pc"], JFQ, B),
             "proj_dbl_n": dbl,
             "jacobian_to_proj": jgroup.jacobian_to_proj(a["P"], JFQ),
             "proj_to_jacobian": jgroup.proj_to_jacobian(a["Pc"], JFQ),
@@ -116,6 +117,7 @@ def _port(fn, impl):
         "mixed_add_unsafe": lambda m: m.mixed_add_unsafe(P, Qa, FQ),
         "add_unsafe": lambda m: m.add_unsafe(P, Q, FQ),
         "proj_add_complete": lambda m: m.proj_add_complete(Pc, Qc, FQ, B),
+        "proj_dbl": lambda m: m.proj_dbl(Pc, FQ, B),
         "proj_dbl_n": lambda m: m.proj_dbl_n(Pc, FQ, B, 3),
         "jacobian_to_proj": lambda m: m.jacobian_to_proj(P, FQ),
         "proj_to_jacobian": lambda m: m.proj_to_jacobian(Pc, FQ),
@@ -185,6 +187,7 @@ def test_k2_kernel_matches_plain_on_card(fn):
         "mixed_add_unsafe": lambda m: m.mixed_add_unsafe(P, Qa, FQ),
         "add_unsafe": lambda m: m.add_unsafe(P, Q, FQ),
         "proj_add_complete": lambda m: m.proj_add_complete(Pc, Qc, FQ, B),
+        "proj_dbl": lambda m: m.proj_dbl(Pc, FQ, B),
         "proj_dbl_n": lambda m: m.proj_dbl_n(Pc, FQ, B, 3),
         "jacobian_to_proj": lambda m: m.jacobian_to_proj(P, FQ),
         "proj_to_jacobian": lambda m: m.proj_to_jacobian(Pc, FQ),

@@ -2,7 +2,8 @@
 
 - the rake's plain version (K3's twin) against the reference's
   ``_rake_scan_packed_xla`` at K=4, B=128, bit-exact;
-- ``_finish`` (bucket phase + Horner fold) on the IntModOps mock group,
+- the composed bucket phase over rounds (``pippenger._bucket_phase``) and
+  ``_finish`` (bucket phase + Horner fold) on the IntModOps mock group,
   as tests/test_chunked.py does, and against the reference's ``_finish``;
 - the GLV split against the reference's host split;
 - whole MSMs of the committed dev-SRS table (tau^i * G) against
@@ -30,8 +31,7 @@ from aztec_tpu_torch.curves.io import jacobian_to_host
 from aztec_tpu_torch.curves.spec import BN254_G1
 from aztec_tpu_torch.ff import FQ
 from aztec_tpu_torch.ff import field_kernels as fk
-from aztec_tpu_torch.msm import chunked, glv, rake
-from aztec_tpu_torch.msm.pippenger import MSMConfig, msm
+from aztec_tpu_torch.msm import chunked, glv, pippenger, rake
 from aztec_tpu_torch.numeric.bigint import ints_to_limbs
 from aztec_tpu_torch.srs.reference_string import DEV_TAU, load_point_table
 
@@ -94,11 +94,11 @@ def test_bucket_phase_batched_mock(R, c_bits):
     nb = 1 << c_bits
     rng = np.random.default_rng(11)
     Bk = rng.integers(0, m, (1, R, nb), dtype=np.int64)
-    W = chunked._bucket_phase_batched(IntModOps(m), (torch.from_numpy(Bk),),
-                                      nb, min(64, nb // 1024 or 1))
+    W = pippenger._bucket_phase(IntModOps(m), (torch.from_numpy(Bk),), nb,
+                                min(64, nb // 1024 or 1))
     j = np.arange(nb, dtype=np.int64)
     expect = (Bk[0] * j[None, :] % m).sum(axis=1) % m
-    assert np.array_equal(W[0][0].numpy(), expect)
+    assert np.array_equal(W[0][0, :, 0].numpy(), expect)
 
 
 def test_finish_horner_mock_matches_reference():
@@ -175,7 +175,7 @@ def test_msm_matches_golden(sizes, c):
     ks = [[rng.randrange(R_ORDER) for _ in range(m)] for m in sizes]
     S = [torch.from_numpy(ints_to_limbs(k).astype(np.int32)) for k in ks]
     arg = S[0] if len(S) == 1 else S
-    P = msm((X, Y), arg, BN254_G1, MSMConfig(c=c, block=16, glv=True))
+    P = chunked.msm_chunked((X, Y), arg, BN254_G1, c=c, K=16)
     got = jacobian_to_host(P, BN254_G1)
     assert got == [_golden(k, m) for k, m in zip(ks, sizes)]
 
