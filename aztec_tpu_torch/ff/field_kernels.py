@@ -13,7 +13,9 @@ Operands that broadcast (the FFT twiddles, 1/n, GLV's beta) are
 materialised with ``expand(...).contiguous()`` before the launch, so every
 kernel sees contiguous (16, N) planes.
 
-``LAUNCHES`` counts kernel launches by name; it is the only module state.
+``LAUNCHES`` counts kernel launches by name and ``ELEMS`` the elements
+they ran over (lanes, rake entries, buckets); they are the only module
+state.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from .spec import FieldSpec
 
 L = 16
 LAUNCHES: collections.Counter = collections.Counter()
+ELEMS: collections.Counter = collections.Counter()
 
 FIELD_IDS = {FR_MOD: 0, FQ_MOD: 1}
 
@@ -81,6 +84,7 @@ def launch(lib: str, fn: str, name: str, spec: FieldSpec, ins, n_out: int,
                n, stream)
         native.check(rc, fn)
         LAUNCHES[name] += 1
+        ELEMS[name] += n
     return [o.view((L,) + bshape) for o in outs]
 
 

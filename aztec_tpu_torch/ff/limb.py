@@ -8,8 +8,10 @@ the JAX package's arrays as they are.
 The arithmetic follows the in-kernel helper ``KF`` of
 aztec_tpu/ff/pallas_field.py (schoolbook columns, separated REDC, ripple
 carries, conditional subtraction), which is also what the CUDA kernels
-compute; every function returns the unique canonical representative, so
-the results are bit-identical to both.  Internally it computes in int64
+compute: canonical inputs give the unique canonical representative, and
+any other 16-bit limbs give the reference's bits (sums and U / R taken mod
+2^256, then one conditional subtraction of p), so the results are
+bit-identical to both on any limbs.  Internally it computes in int64
 (this torch build has no add, shift or compare for uint32): a column holds
 whole 32-bit limb products (< 2^36), and the carry ripple walks limb pairs
 (radix 2^32) to halve the number of sequential steps.
@@ -103,10 +105,20 @@ class KF:
         d, co = self.canon(torch.cat([cols, cols + alt], dim=1))
         return d[:, :n], co[:n], d[:, n:], co[n:]
 
+    @staticmethod
+    def _cond_sub_p(lo, co_lo, hi, co_hi):
+        """The reference's reduction of a sum V held in the top 16 digits:
+        t = V mod 2^256 (the 2^256 bit dropped), then t - p where t >= p.
+        ``lo, co_lo`` ripple V and ``hi, co_hi`` ripple V + (R - p), both
+        digits mod 2^256; co_hi = co_lo + [t >= p], so ``hi`` (= t - p mod
+        2^256) is taken exactly when the second ripple carried once more."""
+        return torch.where(co_hi != co_lo, hi, lo)
+
     def add(self, a, b):
-        """(a + b) mod p: a + b, or a + b - p when a + b + (R - p) carries."""
-        s, _, t, co = self._both(a + b, self.comp_p)
-        return torch.where(co != 0, t, s)
+        """(a + b) mod p for any 16-bit limbs, as the reference computes it:
+        s = (a + b) mod 2^256, then s - p where s >= p."""
+        s, co_s, t, co = self._both(a + b, self.comp_p)
+        return self._cond_sub_p(s, co_s, t, co)
 
     def sub(self, a, b):
         """(a - b) mod p: z = a - b + R carries iff a >= b; else z + p."""
@@ -122,11 +134,13 @@ class KF:
 
     def _redc(self, T):
         """Separated REDC (pallas_field.KF._redc) of 32 redundant columns:
-        m = (T mod R) p' mod R, U = T + m p, result U / R or U / R - p."""
+        m = (T mod R) p' mod R, U = T + m p, t = (U / R) mod 2^256, result
+        t or t - p.  On unreduced operands U / R may pass 2^256; the bit is
+        dropped before the comparison, as the reference drops it."""
         m, _ = self.canon(self._carry_save(self.mul_cols(T[:L], self.pp, L)))
         U = T + self.mul_cols(m, self.p, 2 * L)
-        lo, _, hi, co = self._both(U, self.comp_p_hi)
-        return torch.where(co != 0, hi[L:], lo[L:])
+        lo, co_lo, hi, co = self._both(U, self.comp_p_hi)
+        return self._cond_sub_p(lo[L:], co_lo, hi[L:], co)
 
     def mul(self, a, b):
         return self._redc(self.mul_cols(a, b))
@@ -213,7 +227,10 @@ def sub_mod(a, b, spec: FieldSpec):
 
 
 def mont_mul(a, b, spec: FieldSpec):
-    """Montgomery product REDC(a*b); inputs/outputs canonical, < p."""
+    """Montgomery product REDC(a*b) of any 16-bit limbs.  As in the
+    reference, (U / R) mod 2^256 is reduced by one conditional subtraction
+    of p: canonical operands give the canonical product, unreduced ones the
+    reference's bits (which need not be < p)."""
     return _elementwise(spec, KF.mul, a, b)
 
 

@@ -165,4 +165,5 @@ def bucket_phase(buckets, nbuckets: int, spec: FieldSpec, b: int, acc=None,
         int(dbl_steps), stream)
     native.check(rc, "bk_bucket_phase")
     fk.LAUNCHES["bucket_phase"] += 1
+    fk.ELEMS["bucket_phase"] += nbuckets
     return tuple(outs)

@@ -107,6 +107,7 @@ def rake_scan(sd, pts, B: int, K: int, spec: FieldSpec):
             *[o.data_ptr() for o in outs], int(K), int(B), stream)
         native.check(rc, "rk_rake")
         fk.LAUNCHES["rake_scan"] += 1
+        fk.ELEMS["rake_scan"] += n
     return tuple(outs)
 
 
@@ -132,4 +133,5 @@ def rake_scan_packed(dig_k, packed_k, B: int, K: int, spec: FieldSpec):
             *[o.data_ptr() for o in outs], int(K), int(B), stream)
         native.check(rc, "rk_rake_packed")
         fk.LAUNCHES["rake_scan_packed"] += 1
+        fk.ELEMS["rake_scan_packed"] += K * B
     return tuple(outs)

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build" / "aztec_tpu_torch"
-SOURCES = ("field_ops", "group_ops", "rake", "bucket")
+SOURCES = ("field_ops", "group_ops", "rake", "bucket", "microbench")
 HEADERS = ("field.cuh", "group.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
@@ -54,6 +54,10 @@ SIGNATURES = {
     },
     "bucket": {
         "bk_bucket_phase": [_I] + [_P] * 11 + [_I, _I, _P],
+    },
+    "microbench": {
+        "mb_vpu": [_I, _I, _P, _P, _P, _LL, _I, _P],
+        "mb_dissect": [_I, _P, _P, _P, _LL, _P],
     },
 }
 

@@ -11,8 +11,14 @@ exits non-zero):
 1. the card's name and power limit, and the build of the CUDA kernels
    (``aztec_tpu_torch/csrc``, one nvcc per source, all at once);
 2. every kernel (K1 field ops, K2 group formulas, K3 and K5 rakes, K4
-   bucket phase) against its plain PyTorch version on the same inputs at
-   its path's shapes, bit-exact on the limbs, with kernel and plain times;
+   bucket phase, the microbenchmarks' ``mb_vpu`` and ``mb_dissect``)
+   against its plain PyTorch version on the same inputs at its path's
+   shapes, bit-exact; K1 also on unreduced operands (uniform 16-bit limbs,
+   not field elements).  Each path kernel's device time
+   (``tools.timing.device_ms``: 20 calls captured in a CUDA graph, its
+   replays between CUDA events, no host time inside), its ``call_ms``
+   (CUDA events around wrapper calls, the host's launch cost included) and
+   its plain version's time;
 
 then the paths, each with the launch counts cleared just before it and
 read just after:
@@ -39,9 +45,16 @@ read just after:
    against the committed table, bit for bit;
 9. the chain circuit at 2^20 gates, whose SRS of 2^20 + 1 points comes
    from ``fixed_base_mul``: proved, verified, a tamper rejected;
-10. a JSON line with every kernel's launches summed over the paths, times
-    and bound, then the card's name and power limit, then the result
-    line.
+10. the microbenchmarks (``aztec_tpu_torch.tools``) as a user runs them,
+    at widths that fill the card: every ``vpu_microbench`` kind at rows 4
+    and 16 over 8192 tiles' worth of columns, with its element-ops per
+    second beside the programming guide's rate, and every
+    ``kernel_dissect`` body over 2^22 elements, on device time, each timed
+    launch's output held against its plain version;
+11. the redesign ranking (each kernel's device ms in the profiled warm
+    2^17 proof less the bound of the elements it ran over), a JSON line
+    with every kernel's launches summed over the paths, times and bound,
+    then the card's name and power limit, then the result line.
 
 Exits 2 without a result when CUDA is missing or the package is not beside
 this script.
@@ -60,13 +73,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 REF_LOG = os.path.join(ROOT, "artifacts", "cross_verify_2pow17_ref_output.log")
 SEED = 20261016
 
-# H100 SXM memory rate (NVIDIA data sheet): 3.35 TB/s.
-HBM_BYTES_PER_S = 3.35e12
 # 32-bit integer multiply-add results per clock per SM on compute
 # capability 9.0 (CUDA C++ Programming Guide, table of arithmetic
 # instruction throughput): half the fp32 FMA rate.  32-bit adds run at the
 # same rate on a separate pipe.  The card's rate is this times its SM count
-# and its highest SM clock, read at run time (``int_ops_per_s``).
+# and its highest SM clock, read at run time (``timing.peak_per_s``).
 INT32_PER_CLOCK_PER_SM = 64
 PLANE_BYTES = 16 * 4          # one (16,) int32 limb column per element
 # CIOS on 8 x 32-bit limbs: 8 rounds of 16 full 32x32->64 products (two
@@ -112,9 +123,37 @@ KERNELS = {
                  (9, 9)),
     "mul_add": ("field_ops.cu", "aztec_tpu/ff/pallas_field.py:369", 3, 1,
                 (1, 1)),
+    # the microbenchmarks: their tools compute their bounds
+    **{f"vpu_{kind}": ("microbench.cu", "tools/vpu_microbench.py:28", 0, 0,
+                       (0, 0))
+       for kind in ("add_u32", "mul_u32", "shift_u32", "and_u32", "mulmask",
+                    "mul_f32")},
+    **{f"dissect_{body}": ("microbench.cu", f"tools/kernel_dissect.py:{line}",
+                           2, 1, (0, 0))
+       for body, line in (("products", 60), ("comba_full", 78),
+                          ("canon4", 70), ("mont_full", 66))},
 }
+MICROBENCH = [k for k in KERNELS if k.startswith(("vpu_", "dissect_"))]
 # mul_add has no caller in either package: its entry counts only its check
 NO_PATH = ("mul_add",)
+# The microbenchmarks' check sizes are the TPU tools' own (64 tiles of
+# columns; 512 x 128 elements) plus a ragged width; their timing sizes fill
+# the card.
+VPU_NBLOCKS, VPU_TIMED_NBLOCKS = 64, 8192
+DISSECT_NF, DISSECT_TIMED_ELEMS = 512, 1 << 22
+RAGGED = 1000
+# The kernels' CUDA function names, as torch.profiler reports them, for the
+# redesign ranking (proj_dbl runs proj_dbl_n_kernel with one step)
+SYMBOLS = {"mont_mul_kernel": "mont_mul", "add_mod_kernel": "add_mod",
+           "sub_mod_kernel": "sub_mod", "butterfly_kernel": "butterfly",
+           "mul_add_kernel": "mul_add", "mixed_add_kernel": "mixed_add_unsafe",
+           "add_unsafe_kernel": "add_unsafe",
+           "proj_add_kernel": "proj_add_complete",
+           "proj_dbl_n_kernel": "proj_dbl_n", "j2c_kernel": "jacobian_to_proj",
+           "c2j_kernel": "proj_to_jacobian",
+           "rake_packed_kernel": "rake_scan_packed", "rake_kernel": "rake_scan",
+           "bucket_lanes_kernel": "bucket_phase",
+           "bucket_combine_kernel": "bucket_phase"}
 
 # The main path's widest work-queue barrier: the three wire (or the three
 # quotient) commitments of the 2^17 proof run as one batch of MSMs over one
@@ -125,30 +164,6 @@ WINDOW = 16
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def timed(fn, iters: int = 5):
-    """Mean device milliseconds of fn() over iters runs (CUDA events),
-    after one warm-up run; returns (ms, last result)."""
-    import torch
-
-    out = fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters, out
 
 
 def max_abs_err(a, b) -> int:
@@ -164,18 +179,6 @@ def max_abs_err(a, b) -> int:
     return err
 
 
-def int_ops_per_s() -> float:
-    """The card's peak 32-bit integer multiply-add (or add) rate."""
-    import torch
-
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True)
-    mhz = float(out.stdout.strip().splitlines()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return INT32_PER_CLOCK_PER_SM * sms * mhz * 1e6
-
-
 def bound_ms(name: str, elems: int, rate: float, steps: int = 1,
              extra_bytes: int = 0, nbytes: int | None = None,
              products: tuple | None = None):
@@ -184,30 +187,36 @@ def bound_ms(name: str, elems: int, rate: float, steps: int = 1,
     the adds) at the integer rate, whichever is longer.  ``products``
     (Montgomery products, field adds) gives the totals where they are not
     a per-element count times ``steps * elems``."""
+    from aztec_tpu_torch.tools import timing
+
     _, _, ins, outs, (muls, adds) = KERNELS[name]
     if nbytes is None:
         nbytes = (ins + outs) * PLANE_BYTES * elems
     if products is None:
         products = (muls * steps * elems, adds * steps * elems)
-    t_bytes = (nbytes + extra_bytes) / HBM_BYTES_PER_S * 1e3
     ops = max(products[0] * MUL_OPS, products[1] * ADD_OPS)
-    t_ops = ops / rate * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return timing.bound(nbytes + extra_bytes, ops / rate * 1e3)
 
 
 def record(results: dict, rate: float, name, kern, plain, elems, steps=1,
            extra_bytes=0, nbytes=None, products=None, iters=5):
-    """Time kern() (mean of ``iters`` after a warm-up) and plain() (one run
-    after a warm-up) on the same inputs, require equal outputs, and keep
-    the numbers of the kernels line."""
-    ms, out_k = timed(kern, iters)
-    plain_ms, out_p = timed(plain, 1)
+    """Time kern() on the device (``timing.device_ms``) and between CUDA
+    events around ``iters`` wrapper calls (``call_ms``), and plain() (one
+    run after a warm-up), on the same inputs; require equal outputs, and
+    keep the numbers of the kernels line."""
+    from aztec_tpu_torch.tools import timing
+
+    call_ms, out_k = timing.call_ms(kern, iters)
+    ms = timing.device_ms(kern)
+    plain_ms, out_p = timing.call_ms(plain, 1)
     err = max_abs_err(out_k, out_p)
     bnd, by = bound_ms(name, elems, rate, steps, extra_bytes, nbytes, products)
-    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bnd, "bound_by": by, "elems": elems}
+    results[name] = {"max_abs_err": err, "ms": ms, "call_ms": call_ms,
+                     "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                     "elems": elems}
     log(f"kernel {name}: {elems} elems max_abs_err={err} ms={ms:.4f} "
-        f"plain_ms={plain_ms:.2f} bound_ms={bnd:.4f} ({by})")
+        f"call_ms={call_ms:.4f} plain_ms={plain_ms:.2f} bound_ms={bnd:.4f} "
+        f"({by})")
     if err != 0:
         raise AssertionError(f"{name}: kernel differs from plain version")
 
@@ -231,6 +240,47 @@ def random_field(gen, shape, device, zero_lanes: bool = False):
     if zero_lanes:
         flat[:, ::16] = 0
     return x
+
+
+def unreduced_field(gen, shape, device):
+    """Planes of uniform 16-bit limbs, most lanes >= p (not field elements),
+    as the TPU microbenchmarks feed them; lane 0 is all 0xFFFF (U / R passes
+    2^256 in a product with itself) and lane 1 is 1."""
+    import torch
+
+    x = torch.randint(0, 1 << 16, (16,) + shape, generator=gen,
+                      dtype=torch.int32, device=device)
+    flat = x.reshape(16, -1)
+    flat[:, 0] = 0xFFFF
+    if flat.shape[1] > 1:
+        flat[:, 1] = 0
+        flat[0, 1] = 1
+    return x
+
+
+def check_unreduced(gen, dev, n: int = 1 << 16) -> None:
+    """K1 against its plain versions on unreduced operands, bit for bit:
+    both reduce a + b and U / R mod 2^256 before one conditional
+    subtraction of p, as the reference does.  The pairs (a, a) and (a, b)
+    put lane 0 at U / R >= 2^256 and lane 1 at a + b = 2^256."""
+    from aztec_tpu_torch.ff import FQ, FR, limb
+    from aztec_tpu_torch.ff import field_kernels as fk
+
+    for spec in (FR, FQ):
+        a, b, c = (unreduced_field(gen, (n,), dev) for _ in range(3))
+        tw = unreduced_field(gen, (1,), dev)
+        for x, y in ((a, a), (a, b)):
+            for name, args in (("mont_mul", (x, y)), ("add_mod", (x, y)),
+                               ("sub_mod", (x, y)), ("mul_add", (x, y, c)),
+                               ("butterfly", (x, y, tw))):
+                err = max_abs_err(getattr(fk, name)(*args, spec),
+                                  getattr(limb, name)(*args, spec))
+                if err:
+                    raise AssertionError(f"{name} ({spec.name}) differs from "
+                                         "its plain version on unreduced "
+                                         "operands")
+    log(f"kernel K1 on unreduced operands (mont_mul, add_mod, sub_mod, "
+        f"mul_add, butterfly; Fr and Fq; {n} lanes): max_abs_err=0")
 
 
 def check_kernels(results: dict, rate: float) -> None:
@@ -272,6 +322,7 @@ def check_kernels(results: dict, rate: float) -> None:
                 log(f"kernel {name}{sfx}: {n4} elems max_abs_err={err}")
                 if err:
                     raise AssertionError(f"{name}{sfx} differs")
+    check_unreduced(gen, dev)
     # one Stockham stage at 4n: 2^18 butterflies, the twiddle a broadcast
     # (16, 1, Lt) operand (Lt = 2 here) read once
     Lt = 2
@@ -428,6 +479,118 @@ def check_new_kernels(results: dict, rate: float) -> None:
     x, y, z = (random_field(gen, (n4,), dev) for _ in range(3))
     record_("mul_add", lambda: fk.mul_add(x, y, z, FR),
             lambda: limb.mul_add(x, y, z, FR), n4)
+
+
+def check_microbench(results: dict, device: str = "cuda") -> None:
+    """Phase 2, the microbenchmarks' kernels (``mb_vpu``, ``mb_dissect``) vs
+    their plain versions, bit for bit: every kind at rows 4 and 16 and every
+    dissect body, at the TPU tools' sizes and at a ragged width.  (Phase 10
+    checks them again at the widths it times.)"""
+    import torch
+
+    from aztec_tpu_torch.tools import kernel_dissect as kd
+    from aztec_tpu_torch.tools import vpu_microbench as vm
+
+    if MICROBENCH != ([f"vpu_{k}" for k in vm.KINDS]
+                      + [f"dissect_{b}" for b in kd.BODIES]):
+        raise AssertionError("KERNELS lists other microbenchmarks than "
+                             "aztec_tpu_torch.tools")
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+
+    def check(name, out, want):
+        err = max_abs_err(out, want)
+        results[name] = {"max_abs_err": err}
+        if err:
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"{tuple(out.shape)}")
+
+    full = VPU_NBLOCKS * vm.TILE
+    for rows in vm.ROWS_SET:
+        for ncols in (full, RAGGED):
+            a = torch.randint(0, 1 << 16, (rows, ncols), generator=gen,
+                              dtype=torch.int32, device=dev)
+            b = torch.randint(1, 1 << 16, (rows, ncols), generator=gen,
+                              dtype=torch.int32, device=dev)
+            for kind in vm.KINDS:
+                check(f"vpu_{kind}", vm.vpu_chain(kind, rows, a, b),
+                      vm.vpu_chain_plain(kind, rows, a, b))
+    for n in (DISSECT_NF * 128, RAGGED):
+        a, b = (torch.randint(0, 1 << 16, (16, n), generator=gen,
+                              dtype=torch.int32, device=dev) for _ in range(2))
+        for body in kd.BODIES:
+            check(f"dissect_{body}", kd.dissect(body, a, b),
+                  kd.dissect_plain(body, a, b))
+    log(f"kernel mb_vpu: {len(vm.KINDS)} kinds x rows {vm.ROWS_SET} at "
+        f"{full} and {RAGGED} columns, NOPS={vm.NOPS}: max_abs_err=0; "
+        f"kernel mb_dissect: {len(kd.BODIES)} bodies at {DISSECT_NF * 128} "
+        f"and {RAGGED} elements: max_abs_err=0")
+
+
+def microbench_path(results: dict) -> None:
+    """Phase 10: ``vpu_microbench`` and ``kernel_dissect`` as a user runs
+    them, at widths that fill the card.  Each tool holds every timed
+    launch's output against its plain version on the same inputs and
+    returns its device, call and plain times and its bound (from the
+    compiled kernel's SASS); they become the microbenchmarks' entries of
+    the kernels line (rows 16 for the kinds)."""
+    from aztec_tpu_torch.tools import kernel_dissect as kd
+    from aztec_tpu_torch.tools import sass, timing
+    from aztec_tpu_torch.tools import vpu_microbench as vm
+
+    per_sm_clock = timing.peak_per_s(1)
+    int_rate = INT32_PER_CLOCK_PER_SM * per_sm_clock
+    issue = timing.ISSUE_PER_CLOCK_PER_SM * per_sm_clock
+    log(f"microbench: guide int32 rate {int_rate:.4e} per s "
+        f"({INT32_PER_CLOCK_PER_SM} per clock per SM), fp32 multiply "
+        f"{vm.GUIDE['mul_f32'][0] * per_sm_clock:.4e} per s, issue "
+        f"{issue:.4e} instructions per s")
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
+    for (rows, kind), r in vm.run(VPU_TIMED_NBLOCKS, log=log).items():
+        log(f"microbench vpu_{kind} rows={rows}: measured "
+            f"{r['ops_per_s']:.4e} element-ops/s against the guide's "
+            f"{r['guide_per_s']:.4e} ({r['ops_per_s'] / r['guide_per_s']:.3f})"
+            f"; {r['instrs_per_op']:.3f} instructions an op; ms={r['ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); "
+            f"max_abs_err={r['max_abs_err']} at {r['element_ops'] // vm.NOPS}"
+            " elements")
+        entry = results[f"vpu_{kind}"]
+        entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
+        if rows == max(vm.ROWS_SET):
+            entry.update({k: r[k] for k in keys},
+                         elems=r["element_ops"] // vm.NOPS)
+    n = DISSECT_TIMED_ELEMS
+    for body, r in kd.run(n // 128, log=log).items():
+        log(f"microbench dissect_{body}: ms={r['ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); "
+            f"{r['instrs']} instructions an element; "
+            f"max_abs_err={r['max_abs_err']} at {n} elements")
+        entry = results[f"dissect_{body}"]
+        entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
+        entry.update({k: r[k] for k in keys}, elems=n)
+    for (kernel, targs), k in sorted(sass.kernels("microbench").items()):
+        log(f"sass {kernel}{list(targs)}: loop={k.loop} count={k.count} "
+            + " ".join(f"{op}={v}" for op, v in k.hist.most_common(8)))
+
+
+def redesign_ranking(results: dict, cost: dict) -> None:
+    """What each kernel costs a warm 2^17 proof beyond its bound, largest
+    first: its device time in the profiled proof, less the bound of the
+    elements it ran over there (the recorded bound per element, at the
+    recorded width).  The order in which the kernels' redesigns pay most."""
+    rows = []
+    for k, (launches, elems, prof_ms) in cost.items():
+        if k not in results or not launches:
+            continue
+        r = results[k]
+        bnd = elems * r["bound_ms"] / r["elems"]
+        rows.append((prof_ms - bnd, k, launches, elems, prof_ms, bnd))
+    rows.sort(reverse=True)
+    log("redesign ranking, warm 2^17 proof (profiled device ms - bound ms "
+        "over the elements launched): " + "; ".join(
+            f"{k} {n} launches, {e} elements: {p:.3f} - {b:.3f} = "
+            f"{score:.3f} ms" for score, k, n, e, p, b in rows))
 
 
 def check_msm(log2n: int = 20, device: str = "cuda"):
@@ -617,9 +780,12 @@ def build_chain(log2n: int, device: str = "cuda"):
     return c
 
 
-def profile_proof(c) -> float:
+def profile_proof(c):
     """One more warm proof under torch.profiler: device time by kernel.
-    Returns the summed kernel milliseconds (0 if none were seen)."""
+    Returns (the summed kernel milliseconds, {port kernel: device ms}),
+    (0, {}) if the profiler saw none."""
+    import re
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -645,19 +811,27 @@ def profile_proof(c) -> float:
     busy_ms = sum(r[0] for r in rows) / 1e3
     if not rows:
         log("profile: the profiler saw no device time")
-        return 0.0
+        return 0.0, {}
     log(f"profile (warm proof under torch.profiler): wall_ms={wall_ms:.1f} "
         f"kernel_device_ms={busy_ms:.1f} launches={sum(r[2] for r in rows)}")
     for dev_us, key, count in rows[:10]:
         log(f"profile   {dev_us / 1e3:9.2f} ms  x{count:<6d} {key[:70]}")
-    return busy_ms
+    by_name = {}
+    for dev_us, key, _ in rows:
+        m = re.search(r"::(\w+)<", key)
+        name = SYMBOLS.get(m.group(1)) if m else None
+        if name:
+            by_name[name] = by_name.get(name, 0.0) + dev_us / 1e3
+    return busy_ms, by_name
 
 
 def main_path(log2n: int = 17, device: str = "cuda", profile: bool = True):
     """Phase 4 (and 9 at 2^20 gates): the chain proof; at 2^17 gates its VK
     against barretenberg's log.  Beyond 2^20 - 1 gates the SRS of 2^20 + 1
     points comes from the device fixed-base path, and its first 2^20
-    points must equal the committed table."""
+    points must equal the committed table.  Returns (composer, kernel
+    launches of one warm proof, {kernel: (launches, elements, profiled
+    device ms)} of a warm proof, empty unless profiled)."""
     import numpy as np
     import torch
 
@@ -696,17 +870,21 @@ def main_path(log2n: int = 17, device: str = "cuda", profile: bool = True):
     sync()
     cold = time.perf_counter() - t0
     prover = c.create_prover()
-    before = dict(fk.LAUNCHES)
+    before, elems_before = dict(fk.LAUNCHES), dict(fk.ELEMS)
     t0 = time.perf_counter()
     proof2 = prover.construct_proof()
     sync()
     warm = time.perf_counter() - t0
     per_proof = {k: v - before.get(k, 0) for k, v in fk.LAUNCHES.items()}
+    elems = {k: v - elems_before.get(k, 0) for k, v in fk.ELEMS.items()}
     log(f"launches per proof: {json.dumps(per_proof, sort_keys=True)}")
+    cost = {}
     if device == "cuda" and profile:
-        busy_ms = profile_proof(c)
+        busy_ms, by_name = profile_proof(c)
         log(f"device idle share of the unprofiled warm proof: "
             f"{1 - busy_ms / (warm * 1e3):.3f}")
+        cost = {k: (n, elems.get(k, 0), by_name.get(k, 0.0))
+                for k, n in per_proof.items() if n}
     t0 = time.perf_counter()
     vk = c.compute_verification_key()
     t_vk = time.perf_counter() - t0
@@ -725,7 +903,7 @@ def main_path(log2n: int = 17, device: str = "cuda", profile: bool = True):
     log(f"main path 2^{log2n}: {vk_note}proof verifies, tamper rejected; "
         f"key_s={t_key:.2f} prove_cold_s={cold:.2f} prove_warm_s={warm:.2f} "
         f"vk_s={t_vk:.2f}")
-    return c
+    return c, per_proof, cost
 
 
 def counter_rng(seed: int):
@@ -804,22 +982,25 @@ def run() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = card_line()
+    from aztec_tpu_torch.tools import timing
+
+    card = timing.card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t_build = native.build()
     log(f"build: {t_build:.1f}s for {', '.join(native.SOURCES)}")
 
-    rate = int_ops_per_s()
-    log(f"int32 multiply-add peak: {rate:.4g} per s")
+    rate = timing.peak_per_s(INT32_PER_CLOCK_PER_SM)
+    log(f"int32 multiply-add peak (programming guide): {rate:.4g} per s")
     results = {}
     check_kernels(results, rate)
     check_new_kernels(results, rate)
+    check_microbench(results)
 
     # each path runs with the counts set to 0 just before it and read just
     # after; the kernels line sums them
-    pr1 = [k for k in KERNELS
-           if k not in ("rake_scan", "bucket_phase", "proj_dbl", "mul_add")]
+    pr1 = [k for k in KERNELS if k not in MICROBENCH
+           and k not in ("rake_scan", "bucket_phase", "proj_dbl", "mul_add")]
     paths = {}
 
     def path(name, required, fn, *args):
@@ -833,7 +1014,7 @@ def run() -> int:
         return out
 
     case = path("msm_chunked_2pow20", ["rake_scan_packed"], check_msm)
-    c = path("proof_2pow17", pr1, main_path)
+    c, per_proof, cost = path("proof_2pow17", pr1, main_path)
     compare_msm_paths(c)
     del c
     path("msm_engine_2pow20", ["rake_scan_packed", "bucket_phase"],
@@ -843,6 +1024,8 @@ def run() -> int:
     path("srs_fixed_base_2pow20", ["proj_dbl", "proj_add_complete"],
          check_fixed_base)
     path("proof_2pow20", pr1 + ["proj_dbl"], main_path, 20, "cuda", False)
+    path("microbench", MICROBENCH, microbench_path, results)
+    redesign_ranking(results, cost)
 
     kernels = []
     for name, (src, replaces, *_rest) in KERNELS.items():
@@ -853,8 +1036,10 @@ def run() -> int:
             "source": f"aztec_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": sum(counts.get(name, 0) for counts in paths.values()),
             "path": on or None, "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "launches_per_2pow17_proof":
+                per_proof.get(name, 0),
         })
     missing = [k["name"] for k in kernels
                if k["launches"] == 0 and k["name"] not in NO_PATH]

@@ -138,6 +138,59 @@ def test_limb_matches_jax(field, fn):
     assert np.array_equal(got, want)
 
 
+UNREDUCED = ("add_mod", "sub_mod", "mont_mul", "mul_add")
+
+
+def _unreduced_limbs(seed: int, count: int = 64):
+    """(16, count) limbs uniform in [0, 2^16) (most lanes >= p), with two
+    crafted lanes that reach the reference's "drop the 2^256 bit" branch:
+    lane 0 is all 0xFFFF in both operands (U / R >= 2^256 in mont_mul),
+    lane 1 is all 0xFFFF plus 1 (a + b = 2^256 in add_mod)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 16, size=(16, count), dtype=np.int64)
+    x[:, 0] = 0xFFFF
+    x[:, 1] = 0xFFFF if seed % 2 else 0
+    if seed % 2 == 0:
+        x[0, 1] = 1
+    return x.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_unreduced(name):
+    """The reference's field ops on unreduced operands, one jit."""
+    jspec = SPECS[name][1]
+    A = jnp.asarray(_unreduced_limbs(11).astype(np.uint32))
+    B = jnp.asarray(_unreduced_limbs(12).astype(np.uint32))
+
+    @jax.jit
+    def run(A, B):
+        return {
+            "add_mod": jlimb._raw_add_mod(A, B, jspec),
+            "sub_mod": jlimb._raw_sub_mod(A, B, jspec),
+            "mont_mul": jlimb._raw_mont_mul(A, B, jspec),
+            "mul_add": jlimb._raw_add_mod(jlimb._raw_mont_mul(A, B, jspec),
+                                          A[:, ::-1], jspec),
+        }
+
+    return {k: np.asarray(v) for k, v in run(A, B).items()}
+
+
+@pytest.mark.parametrize("field", sorted(SPECS))
+@pytest.mark.parametrize("fn", UNREDUCED)
+def test_limb_matches_jax_on_unreduced_operands(field, fn):
+    """Inputs that are not field elements: the port drops the 2^256 bit of
+    a + b and of U / R before its one conditional subtraction, as the
+    reference does (and as the CUDA kernels do)."""
+    spec = SPECS[field][0]
+    A = torch.from_numpy(_unreduced_limbs(11))
+    B = torch.from_numpy(_unreduced_limbs(12))
+    args = (A, B, A.flip(1)) if fn == "mul_add" else (A, B)
+    got = getattr(limb, fn)(*args, spec)
+    want = _jax_unreduced(field)[fn].astype(np.int64)
+    assert np.array_equal(got.numpy().astype(np.int64), want)
+    assert torch.equal(getattr(fk, fn)(*args, spec), got)
+
+
 GOLDEN = {
     "add_mod": lambda s, x, y: golden.add(s, x, y),
     "sub_mod": lambda s, x, y: golden.sub(s, x, y),
