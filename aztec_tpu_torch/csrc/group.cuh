@@ -1,6 +1,9 @@
 // Elliptic-curve group formulas (short Weierstrass, a = 0) on points held in
-// registers, shared by the kernels of group_ops.cu (K2), rake.cu (K3, K5) and
-// bucket.cu (K4).
+// registers: `mixed_add_unsafe` (K2 gk_mixed_add; K3 and K5 in rake.cu),
+// `proj_add` (K4 in bucket.cu), `proj_dbl` (K2 gk_proj_dbl(_n); K4), `j2c`
+// (K2 gk_j2c; K4) and `proj_neg` / `proj_infinity` (K4).  K2's
+// gk_add_unsafe and gk_proj_add keep their own formulas on the lazy
+// arithmetic of field_lazy.cuh (group_ops.cu).
 //
 // Line-for-line mirrors of the formulas of aztec_tpu/curves/group_pallas.py
 // (same operation order, same infinity selects); every field op returns the
@@ -42,38 +45,6 @@ __device__ __forceinline__ Pt mixed_add_unsafe(const Pt& P, const Elem& X2,
   out.x = select(p_inf, X2, X3);
   out.y = select(p_inf, Y2, Y3);
   out.z = select(p_inf, one_mont<F>(), Z3);
-  return out;
-}
-
-template <class F>
-__device__ __forceinline__ Pt add_unsafe(const Pt& P, const Pt& Q) {
-  const Elem &X1 = P.x, &Y1 = P.y, &Z1 = P.z;
-  const Elem &X2 = Q.x, &Y2 = Q.y, &Z2 = Q.z;
-  Elem Z1Z1 = sqr<F>(Z1);
-  Elem Z2Z2 = sqr<F>(Z2);
-  Elem U1 = mul<F>(X1, Z2Z2);
-  Elem U2 = mul<F>(X2, Z1Z1);
-  Elem S1 = mul<F>(mul<F>(Y1, Z2), Z2Z2);
-  Elem S2 = mul<F>(mul<F>(Y2, Z1), Z1Z1);
-  Elem H = sub<F>(U2, U1);
-  Elem H2 = add<F>(H, H);
-  Elem I = sqr<F>(H2);
-  Elem J = mul<F>(H, I);
-  Elem r = sub<F>(S2, S1);
-  r = add<F>(r, r);
-  Elem V = mul<F>(U1, I);
-  Elem r2 = sqr<F>(r);
-  Elem X3 = sub<F>(sub<F>(r2, J), add<F>(V, V));
-  Elem SJ = mul<F>(S1, J);
-  Elem Y3 = sub<F>(mul<F>(r, sub<F>(V, X3)), add<F>(SJ, SJ));
-  Elem ZZ = sqr<F>(add<F>(Z1, Z2));
-  Elem Z3 = mul<F>(sub<F>(sub<F>(ZZ, Z1Z1), Z2Z2), H);
-  bool p_inf = is_zero(Z1);
-  bool q_inf = is_zero(Z2);
-  Pt out;
-  out.x = select(p_inf, X2, select(q_inf, X1, X3));
-  out.y = select(p_inf, Y2, select(q_inf, Y1, Y3));
-  out.z = select(p_inf, Z2, select(q_inf, Z1, Z3));
   return out;
 }
 

@@ -31,6 +31,9 @@ def mixed_add_unsafe(P, Qa, spec: FieldSpec):
 
 
 def add_unsafe(P, Q, spec: FieldSpec):
+    """Jacobian + Jacobian.  Every coordinate must be canonical (below p):
+    the kernel's lazy arithmetic takes its inputs as reduced, so on limbs
+    at or above p it leaves the plain formula."""
     if not fk.use_kernels(P[0]):
         return group.add_unsafe(P, Q, spec)
     return tuple(fk.launch("group_ops", "gk_add_unsafe", "add_unsafe", spec,
@@ -38,6 +41,8 @@ def add_unsafe(P, Q, spec: FieldSpec):
 
 
 def proj_add_complete(P, Q, spec: FieldSpec, b_int: int):
+    """Complete projective add (RCB16 algorithm 7).  Every coordinate must
+    be canonical (below p), as for ``add_unsafe``."""
     if not fk.use_kernels(P[0]):
         return group.proj_add_complete(P, Q, spec, b_int)
     b3 = _b3(spec, b_int)

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build" / "aztec_tpu_torch"
 SOURCES = ("field_ops", "group_ops", "rake", "bucket", "microbench")
-HEADERS = ("field.cuh", "group.cuh")
+HEADERS = ("field.cuh", "field_lazy.cuh", "group.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

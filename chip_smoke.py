@@ -18,7 +18,12 @@ exits non-zero):
    (``tools.timing.device_ms``: 20 calls captured in a CUDA graph, its
    replays between CUDA events, no host time inside), its ``call_ms``
    (CUDA events around wrapper calls, the host's launch cost included) and
-   its plain version's time;
+   its plain version's time.  The two K2 kernels redesigned for the card
+   (``add_unsafe``, ``proj_add_complete``) also bit for bit on edge lanes
+   (infinities, P = Q, P = -Q, coordinates 0, 1, p - 1) for Fr and Fq at
+   widths 1 to 24,576, timed at the proof's four widths, and every K2
+   kernel's registers, spill bytes and SASS instructions a point printed
+   (a redesigned kernel that spills fails the run);
 
 then the paths, each with the launch counts cleared just before it and
 read just after:
@@ -58,6 +63,10 @@ read just after:
 
 Exits 2 without a result when CUDA is missing or the package is not beside
 this script.
+
+``python3 chip_smoke.py --k2`` runs phase 2's K1-K3 checks and the K2
+phase alone, then the profiled warm 2^17 proof and the ranking.  Copied beside an older checkout's package, it measures
+that commit's kernels with the same script, on the same card.
 """
 
 from __future__ import annotations
@@ -101,9 +110,10 @@ KERNELS = {
                          5, 3, (11, 14)),
     "add_unsafe": ("group_ops.cu", "aztec_tpu/curves/group_pallas.py:71", 6, 3,
                    (16, 13)),
+    # 12 products: the two by 3b are 9t = 8t + t, four adds each
     "proj_add_complete": ("group_ops.cu",
                           "aztec_tpu/curves/group_pallas.py:108", 6, 3,
-                          (14, 19)),
+                          (12, 19 + 2 * 4)),
     "proj_dbl_n": ("group_ops.cu", "aztec_tpu/curves/group_pallas.py:137", 3, 3,
                    (9, 9)),
     "jacobian_to_proj": ("group_ops.cu", "aztec_tpu/curves/group_pallas.py:186",
@@ -154,6 +164,18 @@ SYMBOLS = {"mont_mul_kernel": "mont_mul", "add_mod_kernel": "add_mod",
            "rake_packed_kernel": "rake_scan_packed", "rake_kernel": "rake_scan",
            "bucket_lanes_kernel": "bucket_phase",
            "bucket_combine_kernel": "bucket_phase"}
+
+# The widths the 2^17 proof launches the two redesigned K2 kernels
+# (add_unsafe, proj_add_complete) at: the widest barrier (24 rows x 2^16:
+# the tails and the fold), the composed bucket phase of one MSM and of the
+# three-MSM barrier (8 GLV rows x 1024 lanes each), and the Horner fold
+# (one lane per MSM)
+K2_WIDTHS = (24 << 16, 8192, 24576, 3)
+# the edge lanes' widths: a partial last block at every block size
+K2_EDGE_WIDTHS = (1, 3, 33, 8192 + 5, 24576)
+# Montgomery products a thread of each redesigned kernel computes (proj_add
+# computes 3b by two more where its NINE template argument is 0)
+K2_PRODUCTS = {"add_unsafe_kernel": 16, "proj_add_kernel": 12}
 
 # The main path's widest work-queue barrier: the three wire (or the three
 # quotient) commitments of the 2^17 proof run as one batch of MSMs over one
@@ -479,6 +501,142 @@ def check_new_kernels(results: dict, rate: float) -> None:
     x, y, z = (random_field(gen, (n4,), dev) for _ in range(3))
     record_("mul_add", lambda: fk.mul_add(x, y, z, FR),
             lambda: limb.mul_add(x, y, z, FR), n4)
+
+
+def edge_points(gen, w: int, spec, device):
+    """Two batches (P, Q) of w points of canonical random coordinates whose
+    lanes cycle through the edge cases of the two K2 adds: Z1 = 0, Z2 = 0,
+    both, Q = P, Q = -P, P the identity (0 : 1 : 0), Q the identity, two
+    lanes of coordinates drawn from {0, 1, p - 1}, and a random lane."""
+    import numpy as np
+    import torch
+
+    from aztec_tpu_torch.ff import limb
+    from aztec_tpu_torch.numeric.bigint import ints_to_limbs
+
+    P = [random_field(gen, (w,), device) for _ in range(3)]
+    Q = [random_field(gen, (w,), device) for _ in range(3)]
+    lane = torch.arange(w, device=device) % 10
+    one = limb.one_mont(spec, (w,), device)
+    zero = torch.zeros_like(one)
+    special = torch.as_tensor(
+        ints_to_limbs([0, 1, spec.modulus - 1]).astype(np.int32), device=device)
+
+    def put(pt, k, vals):
+        m = torch.isin(lane, torch.tensor(k, device=device))
+        for c, v in zip(pt, vals):
+            c[:, m] = v[:, m]
+
+    put(P, [0, 2], [P[0], P[1], zero])
+    put(Q, [1, 2], [Q[0], Q[1], zero])
+    put(Q, [3], P)
+    put(Q, [4], [P[0], limb.sub_mod(zero, P[1], spec), P[2]])
+    put(P, [5], [zero, one, zero])
+    put(Q, [6], [zero, one, zero])
+    for pt in (P, Q):
+        put(pt, [7, 8], [special[:, torch.randint(0, 3, (w,), generator=gen,
+                                                  device=device)]
+                         for _ in range(3)])
+    return tuple(P), tuple(Q)
+
+
+def check_k2_edges(device: str = "cuda") -> None:
+    """The two redesigned K2 kernels against their plain versions, bit for
+    bit, on the edge lanes of ``edge_points`` at every width of
+    K2_EDGE_WIDTHS: BN254 G1 (b = 3: ``proj_add`` computes 9t by additions)
+    over Fq and over Fr, and Grumpkin's b = -17 over Fr (the products by
+    3b)."""
+    import torch
+
+    from aztec_tpu_torch.curves import group
+    from aztec_tpu_torch.curves import group_kernels as gk
+    from aztec_tpu_torch.curves.spec import BN254_G1, GRUMPKIN_G1
+    from aztec_tpu_torch.ff import FQ, FR
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 4)
+    for spec, b in ((FR, BN254_G1.b), (FQ, BN254_G1.b), (FR, GRUMPKIN_G1.b)):
+        for w in K2_EDGE_WIDTHS:
+            P, Q = edge_points(gen, w, spec, device)
+            for name, kern, plain in (
+                ("add_unsafe", gk.add_unsafe(P, Q, spec),
+                 group.add_unsafe(P, Q, spec)),
+                ("proj_add_complete", gk.proj_add_complete(P, Q, spec, b),
+                 group.proj_add_complete(P, Q, spec, b)),
+            ):
+                if max_abs_err(kern, plain):
+                    raise AssertionError(f"{name} ({spec.name}, b={b}) "
+                                         "differs from its plain version on "
+                                         f"the edge lanes at width {w}")
+    log(f"kernel add_unsafe, proj_add_complete: edge lanes (Z1 = 0, Z2 = 0, "
+        f"both, P = Q, P = -Q, identities, coordinates 0, 1, p - 1), Fr and "
+        f"Fq, b = 3 and Grumpkin's, widths {list(K2_EDGE_WIDTHS)}: "
+        "max_abs_err=0")
+
+
+def k2_resources(strict: bool = True) -> dict:
+    """Registers, spill bytes and SASS instructions a point of every K2
+    kernel (``cuobjdump -res-usage`` and ``-sass`` of the group_ops build in
+    use); for the two redesigned ones also the IMAD-class instructions a
+    Montgomery product.  ``strict``: a redesigned kernel that spills
+    raises.  Returns {(kernel, template args): numbers}."""
+    from aztec_tpu_torch.tools import sass
+
+    res, code = sass.resources("group_ops"), sass.kernels("group_ops")
+    out = {}
+    for key in sorted(code):
+        r, k = res[key], code[key]
+        imad = sum(v for op, v in k.hist.items() if op.startswith("IMAD"))
+        row = {"regs": r["REG"], "spill_bytes": r["STACK"] + r["LOCAL"],
+               "instructions": k.count, "loop": k.loop, "imad": imad}
+        if key[0] in K2_PRODUCTS:
+            products = K2_PRODUCTS[key[0]] + 2 * (
+                key[0] == "proj_add_kernel" and key[1][-1:] != (1,))
+            row["imad_per_product"] = imad / products
+        out[key] = row
+        log(f"k2 {key[0]}{list(key[1])}: regs={row['regs']} "
+            f"spill_bytes={row['spill_bytes']} sass_per_point={k.count} "
+            f"loop={k.loop} imad={imad}"
+            + (f" imad_per_product={row['imad_per_product']:.1f}"
+               if "imad_per_product" in row else "")
+            + " " + " ".join(f"{op}={v}" for op, v in k.hist.most_common(6)))
+        if strict and key[0] in K2_PRODUCTS and row["spill_bytes"]:
+            raise AssertionError(f"{key[0]}{list(key[1])} spills "
+                                 f"{row['spill_bytes']} bytes")
+    return out
+
+
+def time_k2() -> dict:
+    """The two redesigned K2 kernels (Fq) at the proof's widths
+    (K2_WIDTHS): device ms, call ms, ns a point; held against the plain
+    version at the narrow widths.  Returns {name: {width: (ms, call_ms)}}."""
+    import torch
+
+    from aztec_tpu_torch.curves import group
+    from aztec_tpu_torch.curves import group_kernels as gk
+    from aztec_tpu_torch.curves.spec import BN254_G1
+    from aztec_tpu_torch.ff import FQ
+    from aztec_tpu_torch.tools import timing
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    b = BN254_G1.b
+    calls = {"add_unsafe": (gk.add_unsafe, group.add_unsafe, ()),
+             "proj_add_complete": (gk.proj_add_complete,
+                                   group.proj_add_complete, (b,))}
+    out = {name: {} for name in calls}
+    for w in K2_WIDTHS:
+        P, Q = (tuple(random_field(gen, (w,), "cuda", zero_lanes=(i == 2))
+                      for i in range(3)) for _ in range(2))
+        for name, (kern, plain, extra) in calls.items():
+            ms = timing.device_ms(lambda: kern(P, Q, FQ, *extra))
+            cms, got = timing.call_ms(lambda: kern(P, Q, FQ, *extra))
+            if w < 1 << 16 and max_abs_err(got, plain(P, Q, FQ, *extra)):
+                raise AssertionError(f"{name} differs at width {w}")
+            out[name][w] = (ms, cms)
+            log(f"k2 time {name} width={w}: ms={ms:.5f} "
+                f"call_ms={cms:.5f} ns_per_point={ms * 1e6 / w:.3f}")
+    return out
 
 
 def check_microbench(results: dict, device: str = "cuda") -> None:
@@ -962,7 +1120,13 @@ def compare_msm_paths(c, reps: int = 10, device: str = "cuda") -> None:
         + json.dumps(secs))
 
 
-def run() -> int:
+def run(argv=()) -> int:
+    """The smoke; with ``--k2``, only phase 2's checks of K1-K3 and the K2
+    phase (registers, spills, SASS, edge lanes, the proof's widths, and the
+    design steps where the package builds them), then the profiled warm
+    2^17 proof and its ranking: run beside another commit's package, it
+    compares that commit's kernels on the same card."""
+    k2_only = "--k2" in argv
     try:
         import torch
     except ImportError:
@@ -994,6 +1158,18 @@ def run() -> int:
     log(f"int32 multiply-add peak (programming guide): {rate:.4g} per s")
     results = {}
     check_kernels(results, rate)
+    check_k2_edges()
+    k2 = {"resources": {repr(k): v for k, v in
+                        k2_resources(strict=not k2_only).items()},
+          "times": time_k2()}
+    if k2_only:
+        _, per_proof, cost = main_path()
+        redesign_ranking(results, cost)
+        log(json.dumps({"k2": k2, "launches_per_2pow17_proof": per_proof,
+                        "profiled_2pow17_ms": {k: v[2] for k, v in
+                                               cost.items()}}))
+        log(card)
+        return 0
     check_new_kernels(results, rate)
     check_microbench(results)
 
@@ -1041,6 +1217,9 @@ def run() -> int:
             "library_ms": None, "launches_per_2pow17_proof":
                 per_proof.get(name, 0),
         })
+        if name in k2["times"]:
+            kernels[-1]["ms_at_widths"] = {w: t[0] for w, t in
+                                           k2["times"][name].items()}
     missing = [k["name"] for k in kernels
                if k["launches"] == 0 and k["name"] not in NO_PATH]
     log(json.dumps({"kernels": kernels}))
@@ -1055,4 +1234,4 @@ def run() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(run())
+    sys.exit(run(sys.argv[1:]))

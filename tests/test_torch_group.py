@@ -13,11 +13,11 @@ import pytest
 import torch
 
 from aztec_tpu.curves import group as jgroup
-from aztec_tpu.ff import FQ as JFQ
+from aztec_tpu.ff import FQ as JFQ, FR as JFR
 from aztec_tpu_torch.curves import group, group_kernels as gk
 from aztec_tpu_torch.curves.golden import BN254
-from aztec_tpu_torch.curves.spec import BN254_G1
-from aztec_tpu_torch.ff import FQ, limb
+from aztec_tpu_torch.curves.spec import BN254_G1, GRUMPKIN_G1
+from aztec_tpu_torch.ff import FQ, FR, limb
 from aztec_tpu_torch.ff import field_kernels as fk
 from aztec_tpu_torch.numeric.bigint import ints_to_limbs, limbs_to_ints
 
@@ -194,3 +194,178 @@ def test_k2_kernel_matches_plain_on_card(fn):
     }
     for k, p in zip(calls[fn](gk), calls[fn](group)):
         assert torch.equal(k, p)
+
+
+# -- lazy reduction of the redesigned K2 kernels (csrc/field_lazy.cuh) -------
+
+_M32 = (1 << 32) - 1
+
+
+def _words(x):
+    return [(x >> (32 * i)) & _M32 for i in range(8)]
+
+
+def _lazy_mont_mul(a, b, p):
+    """csrc/field_lazy.cuh ``mul`` word by word (the even / odd CIOS on
+    32-bit words); asserts that the carries the kernel drops are 0."""
+    np_ = -pow(p, -1, 1 << 32) % (1 << 32)
+    A, B, P = _words(a), _words(b), _words(p)
+    cc = 0
+
+    def chain(acc, src, bi, off, carry_in):
+        # acc[j], acc[j+1] += src[j+off] * bi for even j, one carry chain
+        nonlocal cc
+        c = cc if carry_in else 0
+        for j in range(0, 8, 2):
+            t = src[j + off] * bi
+            lo = acc[j] + (t & _M32) + c
+            acc[j], c = lo & _M32, lo >> 32
+            hi = acc[j + 1] + (t >> 32) + c
+            acc[j + 1], c = hi & _M32, hi >> 32
+        cc = c
+
+    def row(even, odd, bi, first):
+        nonlocal cc
+        if first:
+            odd[:] = [0] * 8
+            even[:] = [0] * 8
+            chain(odd, A, bi, 1, False)
+            chain(even, A, bi, 0, False)
+        else:
+            s = even[0] + odd[1]
+            even[0], cc = s & _M32, s >> 32
+            # madc_n_rshift: odd <- (odd >> 64) + odd products, flag in
+            shifted = odd[2:] + [0, 0]
+            odd[:] = shifted
+            chain(odd, A, bi, 1, True)
+            assert cc == 0                   # its last madc.hi takes no .cc
+            chain(even, A, bi, 0, False)
+            odd[7] += cc
+        m = even[0] * np_ & _M32
+        chain(odd, P, m, 1, False)
+        assert cc == 0                       # the carry the kernel drops
+        chain(even, P, m, 0, False)
+        odd[7] += cc
+        assert even[0] == 0 and odd[7] <= _M32
+
+    even, odd = [0] * 8, [0] * 8
+    for i in range(0, 8, 2):
+        row(even, odd, B[i], i == 0)
+        row(odd, even, B[i + 1], False)
+    val = sum(w << (32 * i) for i, w in enumerate(even)) + sum(
+        w << (32 * (i - 1)) for i, w in enumerate(odd) if i)
+    assert val < 1 << 256                    # the merge's last addc
+    return val
+
+
+@pytest.mark.parametrize("spec", [FQ, FR], ids=["fq", "fr"])
+def test_lazy_reduction_invariants(spec):
+    """The bounds that let the redesigned K2 kernels keep values in
+    [0, 2p): a product, an add and a sub of such values land there again,
+    and 9t by four additions is 9t mod p, as the product by 9R is."""
+    p, R = spec.modulus, 1 << 256
+    assert 4 * p < R
+    rinv = pow(R, -1, p)
+    rng = np.random.default_rng(4)
+    edge = [0, 1, p - 1, p, p + 1, 2 * p - 2, 2 * p - 1]
+    vals = edge + [sum(int(w) << (64 * i) for i, w in enumerate(ws)) % (2 * p)
+                   for ws in rng.integers(0, 1 << 63, (40, 5))]
+    for a in vals:
+        for b in vals[:12]:
+            prod = _lazy_mont_mul(a, b, p)
+            assert prod < 2 * p and prod % p == a * b * rinv % p
+            s = a + b
+            s = s - 2 * p if s >= 2 * p else s          # add: masked -2p
+            d = a - b
+            d = d + 2 * p if d < 0 else d               # sub: masked +2p
+            assert 0 <= s < 2 * p and s % p == (a + b) % p
+            assert 0 <= d < 2 * p and d % p == (a - b) % p
+        t = a
+        for _ in range(3):                              # 2t, 4t, 8t
+            t = t + t - 2 * p if t + t >= 2 * p else t + t
+        t = t + a - 2 * p if t + a >= 2 * p else t + a  # 8t + t
+        nine_r = 9 * R % p
+        assert 0 <= t < 2 * p
+        assert t % p == _lazy_mont_mul(a, nine_r, p) % p == 9 * a % p
+        assert (t - p if t >= p else t) == 9 * a % p    # canon
+
+
+# widths of the edge-lane cases: a partial last block at every block size
+# the redesigned kernels choose, and the proof's bucket-phase widths
+K2_EDGE_WIDTHS = (1, 3, 33, 8192 + 5, 24576)
+
+
+def _edge_points(spec, w, seed=9):
+    """(P, Q) of w lanes of canonical random coordinates whose lanes cycle
+    through Z1 = 0, Z2 = 0, both, Q = P, Q = -P, P the identity
+    (0 : 1 : 0), Q the identity, two lanes of coordinates from
+    {0, 1, p - 1}, and a random lane."""
+    p = spec.modulus
+    rng = np.random.default_rng(seed)
+    P, Q = ([[sum(int(v) << (62 * i) for i, v in enumerate(ws)) % p
+              for ws in rng.integers(0, 1 << 62, (w, 5))] for _ in range(3)]
+            for _ in range(2))
+    one = spec.R % p
+    for j in range(w):
+        k = j % 10
+        if k in (0, 2):
+            P[2][j] = 0
+        if k in (1, 2):
+            Q[2][j] = 0
+        if k == 3:
+            for c in range(3):
+                Q[c][j] = P[c][j]
+        if k == 4:
+            Q[0][j], Q[1][j], Q[2][j] = P[0][j], -P[1][j] % p, P[2][j]
+        if k == 5:
+            P[0][j], P[1][j], P[2][j] = 0, one, 0
+        if k == 6:
+            Q[0][j], Q[1][j], Q[2][j] = 0, one, 0
+        if k in (7, 8):
+            for c in P + Q:
+                c[j] = (0, 1, p - 1)[int(rng.integers(0, 3))]
+    return tuple(tuple(torch.from_numpy(np.asarray(ints_to_limbs(c))
+                                        .astype(np.int32)) for c in pt)
+                 for pt in (P, Q))
+
+
+EDGE_CASES = [("add_unsafe", FR, None), ("add_unsafe", FQ, None),
+              ("proj_add_complete", FR, B), ("proj_add_complete", FQ, B),
+              ("proj_add_complete", FR, GRUMPKIN_G1.b)]
+EDGE_IDS = ["add_unsafe-fr", "add_unsafe-fq", "proj_add-fr", "proj_add-fq",
+            "proj_add-grumpkin"]
+
+
+@pytest.mark.parametrize("fn,spec,b", EDGE_CASES, ids=EDGE_IDS)
+def test_plain_k2_formula_matches_jax_on_edge_lanes(fn, spec, b):
+    """The plain formulas that the redesigned kernels are held against
+    equal the reference's on the edge lanes (N lanes, the width of the
+    reference's executables above: every lane kind, a Z of 0, P = +-Q,
+    coordinates 0, 1, p - 1), bit for bit."""
+    P, Q = _edge_points(spec, N)
+    extra = () if b is None else (b,)
+    jspec = JFR if spec is FR else JFQ
+    want = getattr(jgroup, fn)(
+        *(tuple(jnp.asarray(t.numpy().astype(np.uint32)) for t in pt)
+          for pt in (P, Q)), jspec, *extra)
+    got = getattr(group, fn)(P, Q, spec, *extra)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy().astype(np.uint32),
+                              np.asarray(w).astype(np.uint32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", K2_EDGE_WIDTHS)
+@pytest.mark.parametrize("fn,spec,b", EDGE_CASES, ids=EDGE_IDS)
+def test_redesigned_k2_kernel_edge_lanes_on_card(fn, spec, b, w):
+    """The redesigned kernels (lazy reduction, 9t by additions for b = 3,
+    the products by 3b for Grumpkin) equal their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    P, Q = _edge_points(spec, w)
+    extra = () if b is None else (b,)
+    got = getattr(gk, fn)(tuple(t.cuda() for t in P),
+                          tuple(t.cuda() for t in Q), spec, *extra)
+    want = getattr(group, fn)(P, Q, spec, *extra)
+    for g, p in zip(got, want):
+        assert torch.equal(g.cpu(), p)

@@ -216,3 +216,27 @@ def test_dissect_kernel_matches_plain_on_card(body, n):
     a, b = (_t(_limbs(s, (n,))) for s in (8, 9))
     got = kernel_dissect.dissect(body, a.cuda(), b.cuda())
     assert torch.equal(got.cpu(), kernel_dissect.dissect_plain(body, a, b))
+
+
+# A cut-down ``cuobjdump -res-usage`` listing: K2 kernels in a namespace
+# whose mangled name holds digits, a template with a field and a bool
+RES_USAGE = """
+Resource usage:
+ Common:
+  GLOBAL:0
+ Function _ZN24_GLOBAL__N_9a1f_group_ops15proj_add_kernelIN5aztec2FqELb1EEEvPKjS4_S4_S4_S4_S4_PjS5_S5_NS1_8Const256Ex:
+  REG:128 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:624 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function _ZN24_GLOBAL__N_9a1f_group_ops17add_unsafe_kernelIN5aztec2FrEEEvPKjS4_S4_S4_S4_S4_PjS5_S5_x:
+  REG:128 STACK:56 SHARED:0 LOCAL:0 CONSTANT[0]:616 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function _Z11other_kernelPj:
+  REG:8 STACK:0 SHARED:0 LOCAL:0
+"""
+
+
+def test_sass_parse_resources_keys_fields_and_bools():
+    got = sass.parse_resources(RES_USAGE)
+    assert set(got) == {("proj_add_kernel", ("Fq", 1)),
+                        ("add_unsafe_kernel", ("Fr",))}
+    assert got[("add_unsafe_kernel", ("Fr",))]["STACK"] == 56
+    assert got[("proj_add_kernel", ("Fq", 1))]["REG"] == 128
+    assert sass.parse_resources("Resource usage:\n") == {}
