@@ -66,9 +66,12 @@ __device__ __noinline__ Pt padd(const Pt& P, const Pt& Q, const Elem& b3) {
   return proj_add<F>(P, Q, b3);
 }
 
+// `steps` doublings; nine: b3 is 9 (BN254 G1), computed by additions
 template <class F>
-__device__ __noinline__ Pt pdbl(const Pt& P, const Elem& b3) {
-  return proj_dbl<F>(P, b3);
+__device__ __noinline__ Pt pdbl(const Pt& P, const Elem& b3, bool nine,
+                                int steps) {
+  return nine ? proj_dbl<F, true>(P, b3, steps)
+              : proj_dbl<F, false>(P, b3, steps);
 }
 
 template <class F>
@@ -100,7 +103,7 @@ __global__ void bucket_combine_kernel(const u32* __restrict__ scratch,
                                       const u32* __restrict__ az,
                                       u32* __restrict__ ox, u32* __restrict__ oy,
                                       u32* __restrict__ oz, Const256 b3c,
-                                      int log2_k2, int dbl_steps) {
+                                      bool nine, int log2_k2, int dbl_steps) {
   __shared__ Pt part[3][GROUPS];
   const int g = threadIdx.x;
   const Elem b3 = from_const(b3c);
@@ -128,12 +131,11 @@ __global__ void bucket_combine_kernel(const u32* __restrict__ scratch,
     CS = padd<F>(CS, part[1][h], b3);
     AS = padd<F>(AS, part[2][h], b3);
   }
-  for (int s = 0; s < LOG2_S; ++s) CG = pdbl<F>(CG, b3);
-  Pt D = padd<F>(CS, CG, b3);
-  for (int s = 0; s < log2_k2; ++s) D = pdbl<F>(D, b3);
+  CG = pdbl<F>(CG, b3, nine, LOG2_S);
+  Pt D = pdbl<F>(padd<F>(CS, CG, b3), b3, nine, log2_k2);
   Pt W = padd<F>(padd<F>(AS, D, b3), proj_neg<F>(RG), b3);
   Pt acc = load_pt(ax, ay, az, 1, 0);
-  for (int s = 0; s < dbl_steps; ++s) acc = pdbl<F>(acc, b3);
+  acc = pdbl<F>(acc, b3, nine, dbl_steps);
   store_pt(ox, oy, oz, 1, 0, padd<F>(acc, W, b3));
 }
 
@@ -146,8 +148,8 @@ int launch(const u32* bx, const u32* by, const u32* bz, const u32* ax,
       bx, by, bz, scratch, b3, K2);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  bucket_combine_kernel<F><<<1, GROUPS, 0, s>>>(scratch, ax, ay, az, ox, oy,
-                                                oz, b3, log2_k2, dbl_steps);
+  bucket_combine_kernel<F><<<1, GROUPS, 0, s>>>(
+      scratch, ax, ay, az, ox, oy, oz, b3, is_nine<F>(b3), log2_k2, dbl_steps);
   return (int)cudaGetLastError();
 }
 

@@ -235,4 +235,29 @@ inline unsigned int blocks_for(long long n) {
   return (unsigned int)((n + THREADS - 1) / THREADS);
 }
 
+// Threads per block of a redesigned kernel over n threads' work: the power
+// of two from 32 to max_threads whose launch gives the busiest SM the
+// fewest threads (ceil(blocks / SMs) blocks of it); a smaller block must
+// cut that share by more than 1/16.
+inline unsigned int balanced_threads(long long n, unsigned int max_threads) {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 1;
+  }
+  unsigned int best = max_threads;
+  long long best_load = -1;
+  for (unsigned int t = max_threads; t >= 32; t /= 2) {
+    long long blocks = (n + t - 1) / t;
+    long long load = (blocks + sms - 1) / sms * t;
+    if (best_load < 0 || load * 16 < best_load * 15) {
+      best = t;
+      best_load = load;
+    }
+  }
+  return best;
+}
+
 }  // namespace aztec

@@ -1,17 +1,27 @@
 // Elliptic-curve group formulas (short Weierstrass, a = 0) on points held in
-// registers: `mixed_add_unsafe` (K2 gk_mixed_add; K3 and K5 in rake.cu),
-// `proj_add` (K4 in bucket.cu), `proj_dbl` (K2 gk_proj_dbl(_n); K4), `j2c`
-// (K2 gk_j2c; K4) and `proj_neg` / `proj_infinity` (K4).  K2's
-// gk_add_unsafe and gk_proj_add keep their own formulas on the lazy
-// arithmetic of field_lazy.cuh (group_ops.cu).
+// registers, and which kernels use them:
+//
+//   mixed_add_unsafe  lazy (field_lazy.cuh)  K2 gk_mixed_add; K3 and K5
+//                                            (rake.cu `rake_step`)
+//   proj_dbl          lazy (field_lazy.cuh)  K4's doublings (bucket.cu);
+//                                            K2 gk_proj_dbl(_n) runs the
+//                                            same steps split over four
+//                                            lanes (group_ops.cu)
+//   proj_add, j2c     canonical (field.cuh)  K4; j2c also K2 gk_j2c
+//   proj_neg, proj_infinity                  K4
+//
+// K2's gk_add_unsafe and gk_proj_add keep their own formulas on the lazy
+// arithmetic (group_ops.cu).
 //
 // Line-for-line mirrors of the formulas of aztec_tpu/curves/group_pallas.py
-// (same operation order, same infinity selects); every field op returns the
-// canonical representative, so the coordinates are bit-identical to the
-// plain PyTorch formulas of aztec_tpu_torch/curves/group.py.
+// (same operation order, same infinity selects).  The canonical formulas
+// return the canonical representative of every field op; the lazy ones
+// keep values in [0, 2p) and reduce only their results.  Both take
+// canonical inputs, and their coordinates are bit-identical to the plain
+// PyTorch formulas of aztec_tpu_torch/curves/group.py.
 #pragma once
 
-#include "field.cuh"
+#include "field_lazy.cuh"
 
 namespace aztec {
 
@@ -19,32 +29,36 @@ struct Pt {
   Elem x, y, z;
 };
 
+// Jacobian + affine (7M + 4S) on lazy values: P canonical, (X2, Y2)
+// canonical and finite; the canonical Z1 decides infinity, and only the
+// formula's result is reduced, so the output is canonical
 template <class F>
 __device__ __forceinline__ Pt mixed_add_unsafe(const Pt& P, const Elem& X2,
                                                const Elem& Y2) {
   const Elem &X1 = P.x, &Y1 = P.y, &Z1 = P.z;
-  Elem Z1Z1 = sqr<F>(Z1);
-  Elem U2 = mul<F>(X2, Z1Z1);
-  Elem S2 = mul<F>(mul<F>(Y2, Z1), Z1Z1);
-  Elem H = sub<F>(U2, X1);
-  Elem HH = sqr<F>(H);
-  Elem I = add<F>(HH, HH);
-  I = add<F>(I, I);
-  Elem J = mul<F>(H, I);
-  Elem r = sub<F>(S2, Y1);
-  r = add<F>(r, r);
-  Elem V = mul<F>(X1, I);
-  Elem r2 = sqr<F>(r);
-  Elem X3 = sub<F>(sub<F>(r2, J), add<F>(V, V));
-  Elem YJ = mul<F>(Y1, J);
-  Elem Y3 = sub<F>(mul<F>(r, sub<F>(V, X3)), add<F>(YJ, YJ));
-  Elem ZH = sqr<F>(add<F>(Z1, H));
-  Elem Z3 = sub<F>(sub<F>(ZH, Z1Z1), HH);
+  Elem Z1Z1 = lazy::sqr<F>(Z1);
+  Elem U2 = lazy::mul<F>(X2, Z1Z1);
+  Elem S2 = lazy::mul<F>(lazy::mul<F>(Y2, Z1), Z1Z1);
+  Elem H = lazy::sub<F>(U2, X1);
+  Elem HH = lazy::sqr<F>(H);
+  Elem I = lazy::add<F>(HH, HH);
+  I = lazy::add<F>(I, I);
+  Elem J = lazy::mul<F>(H, I);
+  Elem r = lazy::sub<F>(S2, Y1);
+  r = lazy::add<F>(r, r);
+  Elem V = lazy::mul<F>(X1, I);
+  Elem X3 = lazy::sub<F>(lazy::sub<F>(lazy::sqr<F>(r), J),
+                         lazy::add<F>(V, V));
+  Elem YJ = lazy::mul<F>(Y1, J);
+  Elem Y3 = lazy::sub<F>(lazy::mul<F>(r, lazy::sub<F>(V, X3)),
+                         lazy::add<F>(YJ, YJ));
+  Elem ZH = lazy::sqr<F>(lazy::add<F>(Z1, H));
+  Elem Z3 = lazy::sub<F>(lazy::sub<F>(ZH, Z1Z1), HH);
   bool p_inf = is_zero(Z1);
   Pt out;
-  out.x = select(p_inf, X2, X3);
-  out.y = select(p_inf, Y2, Y3);
-  out.z = select(p_inf, one_mont<F>(), Z3);
+  out.x = select(p_inf, X2, lazy::canon<F>(X3));
+  out.y = select(p_inf, Y2, lazy::canon<F>(Y3));
+  out.z = select(p_inf, one_mont<F>(), lazy::canon<F>(Z3));
   return out;
 }
 
@@ -78,28 +92,38 @@ __device__ __forceinline__ Pt proj_add(const Pt& P, const Pt& Q,
   return out;
 }
 
-template <class F>
-__device__ __forceinline__ Pt proj_dbl(const Pt& P, const Elem& b3) {
-  const Elem &X = P.x, &Y = P.y, &Z = P.z;
-  Elem t0 = sqr<F>(Y);
-  Elem Z3 = add<F>(t0, t0);
-  Z3 = add<F>(Z3, Z3);
-  Z3 = add<F>(Z3, Z3);
-  Elem t1 = mul<F>(Y, Z);
-  Elem t2 = mul<F>(sqr<F>(Z), b3);
-  Elem X3 = mul<F>(t2, Z3);
-  Elem Y3 = add<F>(t0, t2);
-  Z3 = mul<F>(t1, Z3);
-  t1 = add<F>(t2, t2);
-  t2 = add<F>(t1, t2);
-  t0 = sub<F>(t0, t2);
-  Y3 = add<F>(X3, mul<F>(t0, Y3));
-  X3 = mul<F>(t0, mul<F>(X, Y));
-  X3 = add<F>(X3, X3);
+// `steps` successive doublings (RCB16 algorithm 9, a = 0) on lazy values:
+// P canonical, each doubling's inputs and outputs in [0, 2p), and only the
+// result reduced.  NINE: 3b = 9 (BN254 G1) by additions; any other b keeps
+// the product by b3.
+template <class F, bool NINE>
+__device__ __forceinline__ Pt proj_dbl(const Pt& P, const Elem& b3,
+                                       int steps) {
+  Elem X = P.x, Y = P.y, Z = P.z;
+  for (int s = 0; s < steps; ++s) {
+    Elem t0 = lazy::sqr<F>(Y);
+    Elem Z3 = lazy::add<F>(t0, t0);
+    Z3 = lazy::add<F>(Z3, Z3);
+    Z3 = lazy::add<F>(Z3, Z3);
+    Elem t1 = lazy::mul<F>(Y, Z);
+    Elem t2 = lazy::sqr<F>(Z);
+    t2 = NINE ? lazy::times9<F>(t2) : lazy::mul<F>(t2, b3);
+    Elem X3 = lazy::mul<F>(t2, Z3);
+    Elem Y3 = lazy::add<F>(t0, t2);
+    Z3 = lazy::mul<F>(t1, Z3);
+    t1 = lazy::add<F>(t2, t2);
+    t2 = lazy::add<F>(t1, t2);
+    t0 = lazy::sub<F>(t0, t2);
+    Y3 = lazy::add<F>(X3, lazy::mul<F>(t0, Y3));
+    X3 = lazy::mul<F>(t0, lazy::mul<F>(X, Y));
+    X = lazy::add<F>(X3, X3);
+    Y = Y3;
+    Z = Z3;
+  }
   Pt out;
-  out.x = X3;
-  out.y = Y3;
-  out.z = Z3;
+  out.x = lazy::canon<F>(X);
+  out.y = lazy::canon<F>(Y);
+  out.z = lazy::canon<F>(Z);
   return out;
 }
 
@@ -139,6 +163,41 @@ __device__ __forceinline__ void store_pt(u32* X, u32* Y, u32* Z, long long n,
   store(X, n, j, p.x);
   store(Y, n, j, p.y);
   store(Z, n, j, p.z);
+}
+
+// 9 in Montgomery form (9R mod p, from R mod p by host arithmetic): the b3
+// of BN254 G1, for which the formulas compute 3b t as 9t by additions
+template <class F>
+inline bool is_nine(const Const256& b3) {
+  u64 w[NL];
+  u64 carry = 0;
+  for (int i = 0; i < NL; ++i) {
+    u64 t = (u64)F::ONE(i) * 9u + carry;
+    w[i] = t & 0xffffffffu;
+    carry = t >> 32;
+  }
+  for (;;) {  // reduce below p: 9R mod p < 9p, at most 8 subtractions
+    bool ge = carry != 0;
+    if (!ge) {
+      ge = true;
+      for (int i = NL - 1; i >= 0; --i)
+        if (w[i] != F::P(i)) {
+          ge = w[i] > F::P(i);
+          break;
+        }
+    }
+    if (!ge) break;
+    u64 borrow = 0;
+    for (int i = 0; i < NL; ++i) {
+      u64 t = w[i] - F::P(i) - borrow;
+      w[i] = t & 0xffffffffu;
+      borrow = (t >> 63) & 1u;
+    }
+    carry -= borrow;
+  }
+  for (int i = 0; i < NL; ++i)
+    if (b3.v[i] != (u32)w[i]) return false;
+  return true;
 }
 
 inline Const256 const_from_host(const u32* limbs) {

@@ -1,5 +1,5 @@
 // K2: whole elliptic-curve group formulas (short Weierstrass, a = 0) over
-// (16, n) limb planes, one thread per point.
+// (16, n) limb planes, one thread per point (proj_dbl_n: four).
 //
 // Replaces the group-formula kernels of aztec_tpu/curves/group_pallas.py
 // (built on the elementwise factory of ff/pallas_field.py):
@@ -12,58 +12,64 @@
 //   gk_c2j           <- _f_c2j               projective -> Jacobian
 // Every coordinate is bit-identical to the TPU formulas'.
 //
-// gk_add_unsafe and gk_proj_add, the two kernels on which a 2^17 proof
-// spent the most device time, are redesigned for the card.  The other five
-// keep the canonical arithmetic of field.cuh and the formulas of group.cuh,
-// one thread per point in 256-thread blocks, until their own redesign.
+// Redesigned for the card, in the order of the 2^17 proof's device time:
+// gk_add_unsafe and gk_proj_add (first), gk_proj_dbl_n and gk_proj_dbl,
+// its one-step launch (second); gk_mixed_add runs the lazy formula of
+// group.cuh.  gk_j2c and gk_c2j keep the canonical arithmetic of
+// field.cuh, one thread per point in 256-thread blocks.  Each design step
+// below was kept only where it measured faster at the proof's widths on
+// one card against the step before, and every kernel stays bit-exact with
+// its plain version; PERF.md has each step's times, registers and SASS,
+// from `python3 chip_smoke.py --redesigned` and the design-step builds
+// it records.
 //
-// The redesign, each step kept because it measured faster at the proof's
-// widths and stayed bit-exact (PERF.md, "K2 redesign", has each step's
-// device times at the proof's four widths, from `python3 chip_smoke.py --k2`
-// on an NVIDIA H100 80GB HBM3 at 700 W):
+// What bounds them: a wide launch by the multiply-adds of its products at
+// the card's 32-bit multiply-add rate; a narrow one (the proof's folds run
+// proj_dbl_n on 1 to 3 points) by the latency of one chain of dependent
+// products, since the carry-chain statements of a product issue in order.
 //
+// add_unsafe and proj_add:
 // 1. Arithmetic (field_lazy.cuh): Montgomery products as PTX carry chains
 //    (the even / odd CIOS of GPU MSM libraries), which ptxas issues as one
-//    IMAD.WIDE per 32 x 32 multiply-add with its carries (136 IMADs a
-//    product, where the C form of field.cuh spends about 270 IMADs and as
-//    many IADD3s), and lazy reduction: values stay in [0, 2p), a product
-//    takes no final subtraction, an add or sub corrects by 2p without a
-//    branch, and only the stored coordinates are reduced to [0, p).  The
-//    infinity tests and selects of add_unsafe read the canonical inputs.
-//    It cut about two thirds of both kernels' wide-launch time.
+//    wide IMAD per 32 x 32 multiply-add with its carries, where the C form
+//    of field.cuh spends separate adds on the carries; lazy reduction:
+//    values stay in [0, 2p), a product takes no final subtraction, an add
+//    or sub corrects by 2p without a branch, and only the stored
+//    coordinates are reduced to [0, p).  The infinity tests and selects of
+//    add_unsafe read the canonical inputs.
 // 2. proj_add for b = 3 (BN254 G1, 3b = 9): t2 * 3b and Y3 * 3b become
-//    9t = 8t + t, four lazy additions each, instead of two of 14 products.
-//    The entry point compares the b3 it is given with 9 in Montgomery
-//    form; any other b keeps the products.
+//    9t = 8t + t, four lazy additions each.  The entry point compares the
+//    b3 it is given with 9 in Montgomery form (group.cuh `is_nine`); any
+//    other b keeps the products.
 // 3. Registers and geometry: `__launch_bounds__` caps the registers where
-//    no spill follows (proj_add 128 registers, 2 blocks of 256 an SM;
-//    add_unsafe 168, 3 blocks of 128; at 128 it spilled), and the entry
-//    points choose the block size from n so that the busiest SM gets the
-//    fewest points: the proof's 8,192- and 24,576-lane launches reach every
-//    SM in 64-thread blocks.  It cut about 30% at 8,192 lanes.
+//    no spill follows (PA_ and AU_ below), and the entry points choose the
+//    block size from n so that the busiest SM gets the fewest points.
+// Dropped: 8 threads a point for narrow launches (one of the 6
+// independent products of each level on each, exchanged by shuffles): no
+// faster at 8,192 points, slower in the profiled proof.
 //
-// A fourth step, 8 threads a point for narrow launches (each computing one
-// of the 6 independent products of each level, exchanged by warp
-// shuffles), was no faster at 8,192 points and made the profiled proof's
-// proj_add time longer; it is not kept.
+// proj_dbl_n:
+// 1. group.cuh `proj_dbl` on lazy values through all `steps` doublings,
+//    9t by additions for b = 3, only the stored coordinates reduced.
+// 2. Four lanes a point (DBL_LANES): a doubling's independent products run
+//    on separate lanes, Y^2, YZ, Z^2, XY, then t2 Z3, t1 Z3, t0 Y3, t0 XY,
+//    exchanged by `__shfl_sync`, so a doubling waits on two products
+//    instead of eight (three for b != 3).  Faster than step 1 at every
+//    width measured, the proof's narrow ones and 8,192 points alike.
 //
 // Precondition: every input coordinate is canonical (below p), as every
 // caller's points are.  The sums of raw inputs (X1 + Y1, Z1 + Z2) are taken
 // without a correction and `is_zero` reads the raw Z, so on limbs at or
-// above p these two kernels leave the plain formulas, which reduce any
-// 256-bit operand first.
-//
-// What bounds them: the multiply-adds of their products at 64 per clock
-// per SM (264 a product); their SASS takes about half that at the issue
-// rate of 128 per clock.  `chip_smoke.py` prints both, with registers and
-// spills from `cuobjdump -res-usage`; PERF.md keeps the numbers.
-#include "field_lazy.cuh"
+// above p the redesigned kernels leave the plain formulas, which reduce
+// any 256-bit operand first.
 #include "group.cuh"
 
 // step 3: each kernel's largest block and the blocks an SM must hold; the
 // register cap they imply, 65536 / (threads x blocks), leaves no spill
 constexpr int PA_THREADS = 256, PA_BLOCKS = 2;  // proj_add: 128 registers
 constexpr int AU_THREADS = 128, AU_BLOCKS = 3;  // add_unsafe: 168
+// proj_dbl_n: lanes a point, and the largest block
+constexpr int DBL_LANES = 4, DBL_THREADS = 128;
 
 using namespace aztec;
 
@@ -171,15 +177,52 @@ __global__ void __launch_bounds__(PA_THREADS, PA_BLOCKS) proj_add_kernel(
   store_pt(X3, Y3, Z3, n, j, R);
 }
 
-template <class F>
-__global__ void proj_dbl_n_kernel(const u32* X1, const u32* Y1, const u32* Z1,
-                                  u32* X3, u32* Y3, u32* Z3, Const256 b3,
-                                  int steps, long long n) {
-  INDEX
-  Pt P = load_pt(X1, Y1, Z1, n, j);
-  Elem b = from_const(b3);
-  for (int s = 0; s < steps; ++s) P = proj_dbl<F>(P, b);
-  store_pt(X3, Y3, Z3, n, j, P);
+// an element from lane `src` of this thread's group of DBL_LANES lanes
+__device__ __forceinline__ Elem shfl(const Elem& a, int src) {
+  Elem r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i)
+    r.v[i] = __shfl_sync(0xffffffffu, a.v[i], src, DBL_LANES);
+  return r;
+}
+
+// group.cuh `proj_dbl` split over the DBL_LANES lanes of a point: each
+// level's independent products run on separate lanes (level 1: Y^2, YZ,
+// Z^2, XY; level 2: t2 Z3, t1 Z3, t0 Y3, t0 XY), so a doubling waits on
+// two products instead of eight.  The sums between them are computed on
+// every lane from the products shuffled in.  Lanes past n load point n - 1
+// (every lane of the warp takes part in the shuffles) and store nothing.
+template <class F, bool NINE>
+__global__ void __launch_bounds__(DBL_THREADS) proj_dbl_n_kernel(
+    const u32* X1, const u32* Y1, const u32* Z1, u32* X3, u32* Y3, u32* Z3,
+    Const256 b3c, int steps, long long n) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long j = t / DBL_LANES;
+  const int r = threadIdx.x % DBL_LANES;
+  const long long jl = j < n ? j : n - 1;
+  const Elem b3 = from_const(b3c);
+  Elem X = load(X1, n, jl), Y = load(Y1, n, jl), Z = load(Z1, n, jl);
+  for (int s = 0; s < steps; ++s) {
+    Elem m1 = lazy::mul<F>(select(r == 3, X, select(r == 2, Z, Y)),
+                           select(r == 0 || r == 3, Y, Z));
+    const Elem t0 = shfl(m1, 0);  // Y^2; lane 1 holds YZ, lane 3 XY
+    Elem t2 = shfl(m1, 2);        // Z^2
+    t2 = NINE ? lazy::times9<F>(t2) : lazy::mul<F>(t2, b3);
+    Elem z3 = lazy::add<F>(t0, t0);  // 8 t0
+    z3 = lazy::add<F>(z3, z3);
+    z3 = lazy::add<F>(z3, z3);
+    const Elem y3 = lazy::add<F>(t0, t2);
+    const Elem t0x = lazy::sub<F>(t0, lazy::add<F>(lazy::add<F>(t2, t2), t2));
+    Elem m2 = lazy::mul<F>(select(r == 0, t2, select(r == 1, m1, t0x)),
+                           select(r <= 1, z3, select(r == 2, y3, m1)));
+    Y = lazy::add<F>(shfl(m2, 0), shfl(m2, 2));
+    Z = shfl(m2, 1);
+    X = lazy::add<F>(m2, m2);  // lane 3's; only lane 3 reads X
+  }
+  if (j >= n) return;
+  if (r == 3) store(X3, n, j, lazy::canon<F>(X));
+  if (r == 0) store(Y3, n, j, lazy::canon<F>(Y));
+  if (r == 1) store(Z3, n, j, lazy::canon<F>(Z));
 }
 
 template <class F>
@@ -212,66 +255,6 @@ __global__ void c2j_kernel(const u32* X1, const u32* Y1, const u32* Z1,
       return (int)cudaErrorInvalidValue;                                   \
   } while (0)
 
-// 9 in Montgomery form (9R mod p, from R mod p by host arithmetic), the b3
-// of BN254 G1; the 9t-by-additions kernel is taken only for it
-template <class F>
-static bool is_nine(const Const256& b3) {
-  u64 w[NL];
-  u64 carry = 0;
-  for (int i = 0; i < NL; ++i) {
-    u64 t = (u64)F::ONE(i) * 9u + carry;
-    w[i] = t & 0xffffffffu;
-    carry = t >> 32;
-  }
-  for (;;) {  // reduce below p: 9R mod p < 9p, at most 8 subtractions
-    bool ge = carry != 0;
-    if (!ge) {
-      ge = true;
-      for (int i = NL - 1; i >= 0; --i)
-        if (w[i] != F::P(i)) {
-          ge = w[i] > F::P(i);
-          break;
-        }
-    }
-    if (!ge) break;
-    u64 borrow = 0;
-    for (int i = 0; i < NL; ++i) {
-      u64 t = w[i] - F::P(i) - borrow;
-      w[i] = t & 0xffffffffu;
-      borrow = (t >> 63) & 1u;
-    }
-    carry -= borrow;
-  }
-  for (int i = 0; i < NL; ++i)
-    if (b3.v[i] != (u32)w[i]) return false;
-  return true;
-}
-
-// Threads per block of a redesigned K2 kernel for n points: the power of
-// two from 32 to max_threads whose launch gives the busiest SM the fewest
-// points (ceil(blocks / SMs) blocks of it); a smaller block must cut that
-// share by more than 1/16.
-static unsigned int k2_threads(long long n, unsigned int max_threads) {
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 1;
-  }
-  unsigned int best = max_threads;
-  long long best_load = -1;
-  for (unsigned int t = max_threads; t >= 32; t /= 2) {
-    long long blocks = (n + t - 1) / t;
-    long long load = (blocks + sms - 1) / sms * t;
-    if (best_load < 0 || load * 16 < best_load * 15) {
-      best = t;
-      best_load = load;
-    }
-  }
-  return best;
-}
-
 extern "C" {
 
 int gk_mixed_add(int field, const u32* X1, const u32* Y1, const u32* Z1,
@@ -284,7 +267,7 @@ int gk_mixed_add(int field, const u32* X1, const u32* Y1, const u32* Z1,
 int gk_add_unsafe(int field, const u32* X1, const u32* Y1, const u32* Z1,
                   const u32* X2, const u32* Y2, const u32* Z2, u32* X3,
                   u32* Y3, u32* Z3, long long n, void* stream) {
-  unsigned int threads = k2_threads(n, AU_THREADS);
+  unsigned int threads = balanced_threads(n, AU_THREADS);
   unsigned int blocks = (unsigned int)((n + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
   if (field == 0)
@@ -303,7 +286,7 @@ int gk_proj_add(int field, const u32* X1, const u32* Y1, const u32* Z1,
                 const u32* X2, const u32* Y2, const u32* Z2, u32* X3, u32* Y3,
                 u32* Z3, const u32* b3, long long n, void* stream) {
   Const256 c = const_from_host(b3);
-  unsigned int threads = k2_threads(n, PA_THREADS);
+  unsigned int threads = balanced_threads(n, PA_THREADS);
   unsigned int blocks = (unsigned int)((n + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
 #define PROJ_ADD(F, NINE)                                               \
@@ -322,21 +305,37 @@ int gk_proj_add(int field, const u32* X1, const u32* Y1, const u32* Z1,
   return (int)cudaGetLastError();
 }
 
-// one doubling: the loop body of gk_proj_dbl_n, launched with steps = 1
-int gk_proj_dbl(int field, const u32* X1, const u32* Y1, const u32* Z1,
-                u32* X3, u32* Y3, u32* Z3, const u32* b3, long long n,
-                void* stream) {
-  Const256 c = const_from_host(b3);
-  DISPATCH(field, proj_dbl_n_kernel, X1, Y1, Z1, X3, Y3, Z3, c, 1, n);
-  return (int)cudaGetLastError();
-}
-
+// b3: host pointer to the 8 32-bit limbs of 3b in Montgomery form
 int gk_proj_dbl_n(int field, const u32* X1, const u32* Y1, const u32* Z1,
                   u32* X3, u32* Y3, u32* Z3, const u32* b3, int steps,
                   long long n, void* stream) {
+  if (steps < 0) return (int)cudaErrorInvalidValue;
   Const256 c = const_from_host(b3);
-  DISPATCH(field, proj_dbl_n_kernel, X1, Y1, Z1, X3, Y3, Z3, c, steps, n);
+  const long long nt = n * DBL_LANES;
+  unsigned int threads = balanced_threads(nt, DBL_THREADS);
+  unsigned int blocks = (unsigned int)((nt + threads - 1) / threads);
+  cudaStream_t s = (cudaStream_t)stream;
+#define PROJ_DBL(F, NINE)                                                  \
+  proj_dbl_n_kernel<F, NINE><<<blocks, threads, 0, s>>>(X1, Y1, Z1, X3, Y3, \
+                                                        Z3, c, steps, n)
+  if (field == 0) {
+    if (is_nine<Fr>(c)) PROJ_DBL(Fr, true);
+    else PROJ_DBL(Fr, false);
+  } else if (field == 1) {
+    if (is_nine<Fq>(c)) PROJ_DBL(Fq, true);
+    else PROJ_DBL(Fq, false);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef PROJ_DBL
   return (int)cudaGetLastError();
+}
+
+// one doubling: gk_proj_dbl_n with steps = 1
+int gk_proj_dbl(int field, const u32* X1, const u32* Y1, const u32* Z1,
+                u32* X3, u32* Y3, u32* Z3, const u32* b3, long long n,
+                void* stream) {
+  return gk_proj_dbl_n(field, X1, Y1, Z1, X3, Y3, Z3, b3, 1, n, stream);
 }
 
 int gk_j2c(int field, const u32* X1, const u32* Y1, const u32* Z1, u32* X3,

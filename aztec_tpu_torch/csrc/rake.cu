@@ -38,9 +38,26 @@
 // K5 is bound by the launch and by the K sequential steps of one lane,
 // not by the card's rates.
 //
-// Bound on an H100: per entry K3 reads 68 bytes and writes 192 bytes
-// against one mixed add (~11 Montgomery products); at the main path's
-// 2^21 entries per chunk the integer multiply rate bounds it.
+// What bounds K3 on the card: per entry it reads 68 bytes and writes 192
+// against one mixed add of 11 Montgomery products, so at the proof's
+// widths (8 or 24 rows of 4096 lanes, K = 64) the products' multiply-adds
+// at the 32-bit multiply-add rate bound it, not the bytes.
+//
+// K3 is redesigned for the card (PERF.md has each step's times, registers
+// and SASS, from `python3 chip_smoke.py --redesigned` and the design-step
+// builds it records); each step was kept only where it measured faster at
+// both proof widths against the step before:
+// 1. The lazy mixed add of group.cuh (PTX carry chains, values in [0, 2p),
+//    field_lazy.cuh).  The accumulator is carried canonical from step to
+//    step: it is stored at every step anyway, and `is_zero(Z1)` must read
+//    a canonical Z, since a lazy p is a zero.  K5 shares the step.
+// 2. `__launch_bounds__` at the largest register cap with no spill
+//    (RK_THREADS x RK_BLOCKS below); uncapped, ptxas took more registers
+//    and an SM held fewer lanes.  The entry point chooses the block size
+//    from B so that the busiest SM gets the fewest lanes.
+// Dropped: loading entry k + 1's digit and point before step k's
+// arithmetic.  Under the cap it spilled, and it was no faster at the
+// widest width.
 #include "group.cuh"
 
 using namespace aztec;
@@ -48,6 +65,9 @@ using namespace aztec;
 namespace {
 
 constexpr u32 SENTINEL = 0x1FFFFu;  // no digit equals it: first step restarts
+// K3's largest block and the blocks an SM must hold: the register cap they
+// imply, 65536 / (threads x blocks) = 128, leaves no spill
+constexpr int RK_THREADS = 128, RK_BLOCKS = 4;
 
 // One step of a lane: continue the run with (X2, Y2), or restart from it.
 template <class F>
@@ -62,10 +82,10 @@ __device__ __forceinline__ void rake_step(Pt& acc, u32& prevd, u32 dk,
 }
 
 template <class F>
-__global__ void rake_packed_kernel(const u32* __restrict__ dig,
-                                   const u32* __restrict__ packed,
-                                   u32* __restrict__ ox, u32* __restrict__ oy,
-                                   u32* __restrict__ oz, int K, long long B) {
+__global__ void __launch_bounds__(RK_THREADS, RK_BLOCKS) rake_packed_kernel(
+    const u32* __restrict__ dig, const u32* __restrict__ packed,
+    u32* __restrict__ ox, u32* __restrict__ oy, u32* __restrict__ oz, int K,
+    long long B) {
   long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const long long n = (long long)K * B;
@@ -119,7 +139,17 @@ extern "C" {
 
 int rk_rake_packed(int field, const u32* dig, const u32* packed, u32* ox,
                    u32* oy, u32* oz, int K, long long B, void* stream) {
-  DISPATCH(field, rake_packed_kernel, dig, packed, ox, oy, oz, K, B);
+  unsigned int threads = balanced_threads(B, RK_THREADS);
+  unsigned int blocks = (unsigned int)((B + threads - 1) / threads);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (field == 0)
+    rake_packed_kernel<Fr><<<blocks, threads, 0, s>>>(dig, packed, ox, oy, oz,
+                                                      K, B);
+  else if (field == 1)
+    rake_packed_kernel<Fq><<<blocks, threads, 0, s>>>(dig, packed, ox, oy, oz,
+                                                      K, B);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,8 @@
 
 Port of aztec_tpu/curves/group_pallas.py.  Each wrapper computes with the
 plain formula of ``group.py`` only for CPU tensors; for CUDA tensors it
-launches the kernel (one thread per point, all intermediates in registers)
-or raises.  Launches are counted in ``field_kernels.LAUNCHES`` under the
+launches the kernel (one thread per point, or four for ``proj_dbl_n``, all
+intermediates in registers) or raises.  Launches are counted in ``field_kernels.LAUNCHES`` under the
 names below.
 """
 
@@ -24,6 +24,8 @@ def _b3(spec: FieldSpec, b_int: int):
 
 
 def mixed_add_unsafe(P, Qa, spec: FieldSpec):
+    """Jacobian + affine.  Every coordinate must be canonical (below p), as
+    for ``add_unsafe``."""
     if not fk.use_kernels(P[0]):
         return group.mixed_add_unsafe(P, Qa, spec)
     return tuple(fk.launch("group_ops", "gk_mixed_add", "mixed_add_unsafe",
@@ -52,7 +54,8 @@ def proj_add_complete(P, Q, spec: FieldSpec, b_int: int):
 
 
 def proj_dbl(P, spec: FieldSpec, b_int: int):
-    """One complete doubling (RCB16 algorithm 9)."""
+    """One complete doubling (RCB16 algorithm 9): ``proj_dbl_n`` with one
+    step."""
     if not fk.use_kernels(P[0]):
         return group.proj_dbl(P, spec, b_int)
     b3 = _b3(spec, b_int)
@@ -61,7 +64,9 @@ def proj_dbl(P, spec: FieldSpec, b_int: int):
 
 
 def proj_dbl_n(P, spec: FieldSpec, b_int: int, steps: int):
-    """``steps`` successive complete doublings in one launch."""
+    """``steps`` successive complete doublings in one launch, four lanes a
+    point.  Every coordinate must be canonical (below p), as for
+    ``add_unsafe``."""
     if not fk.use_kernels(P[0]):
         return group.proj_dbl_n(P, spec, b_int, steps)
     b3 = _b3(spec, b_int)

@@ -18,12 +18,13 @@ exits non-zero):
    (``tools.timing.device_ms``: 20 calls captured in a CUDA graph, its
    replays between CUDA events, no host time inside), its ``call_ms``
    (CUDA events around wrapper calls, the host's launch cost included) and
-   its plain version's time.  The two K2 kernels redesigned for the card
-   (``add_unsafe``, ``proj_add_complete``) also bit for bit on edge lanes
-   (infinities, P = Q, P = -Q, coordinates 0, 1, p - 1) for Fr and Fq at
-   widths 1 to 24,576, timed at the proof's four widths, and every K2
-   kernel's registers, spill bytes and SASS instructions a point printed
-   (a redesigned kernel that spills fails the run);
+   its plain version's time.  The kernels redesigned for the card (K2
+   ``add_unsafe``, ``proj_add_complete`` and ``proj_dbl_n``, K3
+   ``rake_scan_packed``) also bit for bit on edge lanes (infinities,
+   P = Q, P = -Q, coordinates 0, 1, p - 1; for K3 also runs, restarts and
+   alternating digits) for Fr and Fq, timed at the proof's widths, and
+   every K2 and rake kernel's registers, spill bytes and SASS instructions
+   printed (a redesigned kernel that spills fails the run);
 
 then the paths, each with the launch counts cleared just before it and
 read just after:
@@ -64,9 +65,10 @@ read just after:
 Exits 2 without a result when CUDA is missing or the package is not beside
 this script.
 
-``python3 chip_smoke.py --k2`` runs phase 2's K1-K3 checks and the K2
-phase alone, then the profiled warm 2^17 proof and the ranking.  Copied beside an older checkout's package, it measures
-that commit's kernels with the same script, on the same card.
+``python3 chip_smoke.py --redesigned`` runs phase 2's K1-K3 checks and
+the redesigned kernels' phase alone, then the profiled warm 2^17 proof and
+the ranking.  Copied beside an older checkout's package, it measures that
+commit's kernels with the same script, on the same card.
 """
 
 from __future__ import annotations
@@ -74,7 +76,6 @@ from __future__ import annotations
 import json
 import os
 import random
-import subprocess
 import sys
 import time
 
@@ -114,8 +115,9 @@ KERNELS = {
     "proj_add_complete": ("group_ops.cu",
                           "aztec_tpu/curves/group_pallas.py:108", 6, 3,
                           (12, 19 + 2 * 4)),
+    # 8 products a doubling: the one by 3b is 9t = 8t + t, four adds
     "proj_dbl_n": ("group_ops.cu", "aztec_tpu/curves/group_pallas.py:137", 3, 3,
-                   (9, 9)),
+                   (8, 9 + 4)),
     "jacobian_to_proj": ("group_ops.cu", "aztec_tpu/curves/group_pallas.py:186",
                          3, 3, (3, 0)),
     "proj_to_jacobian": ("group_ops.cu", "aztec_tpu/curves/group_pallas.py:196",
@@ -130,7 +132,7 @@ KERNELS = {
     "bucket_phase": ("bucket.cu", "aztec_tpu/msm/bucket_pallas.py:64", 3, 0,
                      (0, 0)),
     "proj_dbl": ("group_ops.cu", "aztec_tpu/curves/group_pallas.py:160", 3, 3,
-                 (9, 9)),
+                 (8, 9 + 4)),
     "mul_add": ("field_ops.cu", "aztec_tpu/ff/pallas_field.py:369", 3, 1,
                 (1, 1)),
     # the microbenchmarks: their tools compute their bounds
@@ -165,17 +167,31 @@ SYMBOLS = {"mont_mul_kernel": "mont_mul", "add_mod_kernel": "add_mod",
            "bucket_lanes_kernel": "bucket_phase",
            "bucket_combine_kernel": "bucket_phase"}
 
-# The widths the 2^17 proof launches the two redesigned K2 kernels
-# (add_unsafe, proj_add_complete) at: the widest barrier (24 rows x 2^16:
-# the tails and the fold), the composed bucket phase of one MSM and of the
-# three-MSM barrier (8 GLV rows x 1024 lanes each), and the Horner fold
-# (one lane per MSM)
-K2_WIDTHS = (24 << 16, 8192, 24576, 3)
+# The widths the 2^17 proof launches the redesigned kernels at.  The two
+# K2 adds: the widest barrier (24 rows x 2^16: the tails and the fold), the
+# composed bucket phase of one MSM and of the three-MSM barrier (8 GLV rows
+# x 1024 lanes each), and the Horner fold (one lane per MSM).  K3 (K = 64
+# steps a lane): the widest barrier's chunk (24 rows x 4096 lanes) and one
+# MSM's (8 rows).  proj_dbl_n (16 doublings): the fold of one MSM (1 lane:
+# the engine's, the chunked pipeline's Horner fold), of a three-MSM
+# barrier (3), and one eight times wider (24).
+RAKE_K = 64
+REDESIGNED_WIDTHS = {"add_unsafe": (24 << 16, 8192, 24576, 3),
+                     "proj_add_complete": (24 << 16, 8192, 24576, 3),
+                     "rake_scan_packed": (24 * 4096, 8 * 4096),
+                     "proj_dbl_n": (1, 3, 24)}
 # the edge lanes' widths: a partial last block at every block size
 K2_EDGE_WIDTHS = (1, 3, 33, 8192 + 5, 24576)
-# Montgomery products a thread of each redesigned kernel computes (proj_add
-# computes 3b by two more where its NINE template argument is 0)
-K2_PRODUCTS = {"add_unsafe_kernel": 16, "proj_add_kernel": 12}
+DBL_EDGE_WIDTHS, DBL_EDGE_STEPS = (1, 3, 33, 8192 + 5), (1, 16)
+RAKE_EDGE_B, RAKE_EDGE_K = (1, 33, 128, 4096 + 5), (1, 4, 64)
+# Montgomery products a thread of each redesigned kernel computes a point
+# (rake_packed_kernel: an entry; proj_add computes 3b by two more where its
+# NINE template argument is 0)
+PRODUCTS = {"add_unsafe_kernel": 16, "proj_add_kernel": 12,
+            "rake_packed_kernel": 11}
+# kernels of the redesigned phase: a spill fails the run
+REDESIGNED_SYMBOLS = ("add_unsafe_kernel", "proj_add_kernel",
+                      "rake_packed_kernel", "proj_dbl_n_kernel")
 
 # The main path's widest work-queue barrier: the three wire (or the three
 # quotient) commitments of the 2^17 proof run as one batch of MSMs over one
@@ -450,8 +466,8 @@ def check_new_kernels(results: dict, rate: float) -> None:
     k2 = nb // lanes
     adds = 3 * lanes + 4 * groups + 3          # complete adds of the combine
     dbls = (lanes // groups).bit_length() - 1 + k2.bit_length() - 1 + steps
-    products = (nb * (3 + 2 * 14) + adds * 14 + dbls * 9,
-                nb * 2 * 19 + adds * 19 + dbls * 9)
+    products = (nb * (3 + 2 * 14) + adds * 14 + dbls * 8,
+                nb * 2 * 19 + adds * 19 + dbls * 13)
     plain_ops = bucket.PlainOps(FQ, b, dev)
     record_("bucket_phase",
             lambda: bucket.bucket_phase(bk, nb, FQ, b, acc, steps),
@@ -540,102 +556,201 @@ def edge_points(gen, w: int, spec, device):
     return tuple(P), tuple(Q)
 
 
-def check_k2_edges(device: str = "cuda") -> None:
-    """The two redesigned K2 kernels against their plain versions, bit for
-    bit, on the edge lanes of ``edge_points`` at every width of
-    K2_EDGE_WIDTHS: BN254 G1 (b = 3: ``proj_add`` computes 9t by additions)
-    over Fq and over Fr, and Grumpkin's b = -17 over Fr (the products by
-    3b)."""
+def rake_edge_case(gen, B: int, K: int, spec, device):
+    """K3's inputs for B lanes of K steps, the lanes cycling through: one
+    run of all K digits, a restart at every step, alternating digits, runs
+    of four whose second point equals the first (P = Q inside a run: the
+    first step restarts with Z = 1) or is its negative (P = -Q), points of
+    coordinates drawn from {0, 1, p - 1}, and sorted random digits.
+    Returns (digits (K, B), packed points (16, K * B)), K-major."""
+    import numpy as np
+    import torch
+
+    from aztec_tpu_torch.curves.group_ops import JacobianOps
+    from aztec_tpu_torch.curves.spec import BN254_G1, GRUMPKIN_G1
+    from aztec_tpu_torch.ff import FQ, limb
+    from aztec_tpu_torch.numeric.bigint import ints_to_limbs
+
+    X, Y = (random_field(gen, (K, B), device) for _ in range(2))
+    k = torch.arange(K, device=device)[:, None].expand(K, B)
+    kind = (torch.arange(B, device=device) % 7)[None, :].expand(K, B)
+    rnd = torch.sort(torch.randint(0, 4, (K, B), generator=gen,
+                                   device=device), dim=0).values
+    dig = torch.where(kind == 0, 5, torch.where(
+        kind == 1, k, torch.where(kind == 2, k % 2, torch.where(
+            (kind == 3) | (kind == 4), k // 4, rnd))))
+    pair = (k % 4 == 1) & ((kind == 3) | (kind == 4))
+    Xp, Yp = torch.roll(X, 1, dims=1), torch.roll(Y, 1, dims=1)
+    negYp = limb.sub_mod(torch.zeros_like(Yp), Yp, spec)
+    X = torch.where(pair, Xp, X)
+    Y = torch.where(pair & (kind == 3), Yp,
+                    torch.where(pair & (kind == 4), negYp, Y))
+    special = torch.as_tensor(
+        ints_to_limbs([0, 1, spec.modulus - 1]).astype(np.int32), device=device)
+    edge = kind == 5
+    for c in (X, Y):
+        pick = special[:, torch.randint(0, 3, (K, B), generator=gen,
+                                        device=device)]
+        c[:, edge] = pick[:, edge]
+    curve = BN254_G1 if spec is FQ else GRUMPKIN_G1
+    packed = JacobianOps(curve, device).pack_affine(
+        (X.reshape(16, K * B), Y.reshape(16, K * B)))
+    return dig, packed
+
+
+def check_redesigned_edges(device: str = "cuda") -> None:
+    """The redesigned kernels against their plain versions, bit for bit, on
+    edge lanes: the two K2 adds on ``edge_points`` at every width of
+    K2_EDGE_WIDTHS, ``proj_dbl_n`` on its P at DBL_EDGE_WIDTHS and
+    DBL_EDGE_STEPS (BN254 G1, b = 3: 9t by additions, over Fq and Fr, and
+    Grumpkin's b = -17 over Fr: the products by 3b), ``mixed_add_unsafe``
+    (which K3 and K5 share) on P and Q's (X, Y), and K3 on
+    ``rake_edge_case`` for every B of RAKE_EDGE_B and K of RAKE_EDGE_K, Fr
+    and Fq."""
     import torch
 
     from aztec_tpu_torch.curves import group
     from aztec_tpu_torch.curves import group_kernels as gk
     from aztec_tpu_torch.curves.spec import BN254_G1, GRUMPKIN_G1
     from aztec_tpu_torch.ff import FQ, FR
+    from aztec_tpu_torch.msm import rake
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 4)
+
+    def same(name, kern, plain, what):
+        if max_abs_err(kern, plain):
+            raise AssertionError(f"{name} differs from its plain version on "
+                                 f"the edge lanes ({what})")
+
     for spec, b in ((FR, BN254_G1.b), (FQ, BN254_G1.b), (FR, GRUMPKIN_G1.b)):
-        for w in K2_EDGE_WIDTHS:
+        for w in sorted(set(K2_EDGE_WIDTHS) | set(DBL_EDGE_WIDTHS)):
             P, Q = edge_points(gen, w, spec, device)
-            for name, kern, plain in (
-                ("add_unsafe", gk.add_unsafe(P, Q, spec),
-                 group.add_unsafe(P, Q, spec)),
-                ("proj_add_complete", gk.proj_add_complete(P, Q, spec, b),
-                 group.proj_add_complete(P, Q, spec, b)),
-            ):
-                if max_abs_err(kern, plain):
-                    raise AssertionError(f"{name} ({spec.name}, b={b}) "
-                                         "differs from its plain version on "
-                                         f"the edge lanes at width {w}")
-    log(f"kernel add_unsafe, proj_add_complete: edge lanes (Z1 = 0, Z2 = 0, "
-        f"both, P = Q, P = -Q, identities, coordinates 0, 1, p - 1), Fr and "
-        f"Fq, b = 3 and Grumpkin's, widths {list(K2_EDGE_WIDTHS)}: "
-        "max_abs_err=0")
+            what = f"{spec.name}, b={b}, width {w}"
+            if w in K2_EDGE_WIDTHS:
+                same("add_unsafe", gk.add_unsafe(P, Q, spec),
+                     group.add_unsafe(P, Q, spec), what)
+                same("proj_add_complete", gk.proj_add_complete(P, Q, spec, b),
+                     group.proj_add_complete(P, Q, spec, b), what)
+                same("mixed_add_unsafe", gk.mixed_add_unsafe(P, Q[:2], spec),
+                     group.mixed_add_unsafe(P, Q[:2], spec), what)
+            if w in DBL_EDGE_WIDTHS:
+                for st in DBL_EDGE_STEPS:
+                    same("proj_dbl_n", gk.proj_dbl_n(P, spec, b, st),
+                         group.proj_dbl_n(P, spec, b, st),
+                         f"{what}, {st} steps")
+    for spec in (FR, FQ):
+        for B in RAKE_EDGE_B:
+            for K in RAKE_EDGE_K:
+                dig, packed = rake_edge_case(gen, B, K, spec, device)
+                same("rake_scan_packed",
+                     rake.rake_scan_packed(dig, packed, B, K, spec),
+                     rake.rake_scan_packed_plain(dig, packed, B, K, spec),
+                     f"{spec.name}, B={B}, K={K}")
+    log(f"kernel add_unsafe, proj_add_complete, mixed_add_unsafe: edge lanes "
+        f"(Z1 = 0, Z2 = 0, both, P = Q, P = -Q, identities, coordinates 0, "
+        f"1, p - 1), Fr and Fq, b = 3 and Grumpkin's, widths "
+        f"{list(K2_EDGE_WIDTHS)}; proj_dbl_n the same P at widths "
+        f"{list(DBL_EDGE_WIDTHS)}, steps {list(DBL_EDGE_STEPS)}; "
+        f"rake_scan_packed (runs, restarts, alternating digits, P = Q and "
+        f"P = -Q in a run, coordinates 0, 1, p - 1), Fr and Fq, B in "
+        f"{list(RAKE_EDGE_B)}, K in {list(RAKE_EDGE_K)}: max_abs_err=0")
 
 
-def k2_resources(strict: bool = True) -> dict:
-    """Registers, spill bytes and SASS instructions a point of every K2
-    kernel (``cuobjdump -res-usage`` and ``-sass`` of the group_ops build in
-    use); for the two redesigned ones also the IMAD-class instructions a
-    Montgomery product.  ``strict``: a redesigned kernel that spills
-    raises.  Returns {(kernel, template args): numbers}."""
+def redesigned_resources() -> dict:
+    """Registers, spill bytes and SASS instructions of every K2 and rake
+    kernel (``cuobjdump -res-usage`` and ``-sass`` of the group_ops and rake
+    builds in use): instructions a thread, and those of its largest loop
+    (a K3 entry, a doubling of ``proj_dbl_n``); for the redesigned kernels
+    of PRODUCTS also the IMAD-class instructions a Montgomery product.  A
+    kernel of REDESIGNED_SYMBOLS that spills raises.  Returns {(kernel,
+    template args): numbers}."""
     from aztec_tpu_torch.tools import sass
 
-    res, code = sass.resources("group_ops"), sass.kernels("group_ops")
     out = {}
-    for key in sorted(code):
-        r, k = res[key], code[key]
-        imad = sum(v for op, v in k.hist.items() if op.startswith("IMAD"))
-        row = {"regs": r["REG"], "spill_bytes": r["STACK"] + r["LOCAL"],
-               "instructions": k.count, "loop": k.loop, "imad": imad}
-        if key[0] in K2_PRODUCTS:
-            products = K2_PRODUCTS[key[0]] + 2 * (
-                key[0] == "proj_add_kernel" and key[1][-1:] != (1,))
-            row["imad_per_product"] = imad / products
-        out[key] = row
-        log(f"k2 {key[0]}{list(key[1])}: regs={row['regs']} "
-            f"spill_bytes={row['spill_bytes']} sass_per_point={k.count} "
-            f"loop={k.loop} imad={imad}"
-            + (f" imad_per_product={row['imad_per_product']:.1f}"
-               if "imad_per_product" in row else "")
-            + " " + " ".join(f"{op}={v}" for op, v in k.hist.most_common(6)))
-        if strict and key[0] in K2_PRODUCTS and row["spill_bytes"]:
-            raise AssertionError(f"{key[0]}{list(key[1])} spills "
-                                 f"{row['spill_bytes']} bytes")
+    for lib in ("group_ops", "rake"):
+        res, code = sass.resources(lib), sass.kernels(lib)
+        for key in sorted(code):
+            r, k = res[key], code[key]
+            imad = sum(v for op, v in k.hist.items() if op.startswith("IMAD"))
+            row = {"regs": r["REG"], "spill_bytes": r["STACK"] + r["LOCAL"],
+                   "instructions": k.count, "loop": k.loop, "imad": imad}
+            if key[0] in PRODUCTS:
+                products = PRODUCTS[key[0]] + 2 * (
+                    key[0] == "proj_add_kernel" and key[1][-1:] != (1,))
+                row["imad_per_product"] = imad / products
+            out[key] = row
+            log(f"sass {key[0]}{list(key[1])}: regs={row['regs']} "
+                f"spill_bytes={row['spill_bytes']} instructions={k.count} "
+                f"loop={k.loop} imad={imad}"
+                + (f" imad_per_product={row['imad_per_product']:.1f}"
+                   if "imad_per_product" in row else "")
+                + " " + " ".join(f"{op}={v}"
+                                 for op, v in k.hist.most_common(6)))
+            if key[0] in REDESIGNED_SYMBOLS and row["spill_bytes"]:
+                raise AssertionError(f"{key[0]}{list(key[1])} spills "
+                                     f"{row['spill_bytes']} bytes")
     return out
 
 
-def time_k2() -> dict:
-    """The two redesigned K2 kernels (Fq) at the proof's widths
-    (K2_WIDTHS): device ms, call ms, ns a point; held against the plain
-    version at the narrow widths.  Returns {name: {width: (ms, call_ms)}}."""
+def time_redesigned() -> dict:
+    """The redesigned kernels (Fq, BN254 G1) at the proof's widths
+    (REDESIGNED_WIDTHS): device ms, call ms, ns a point (or entry); held
+    against the plain version below 2^16 points (K3 at every width).
+    Returns {name: {width: (ms, call_ms)}}."""
     import torch
 
     from aztec_tpu_torch.curves import group
     from aztec_tpu_torch.curves import group_kernels as gk
+    from aztec_tpu_torch.curves.group_ops import JacobianOps
     from aztec_tpu_torch.curves.spec import BN254_G1
     from aztec_tpu_torch.ff import FQ
+    from aztec_tpu_torch.msm import rake
     from aztec_tpu_torch.tools import timing
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 5)
     b = BN254_G1.b
-    calls = {"add_unsafe": (gk.add_unsafe, group.add_unsafe, ()),
-             "proj_add_complete": (gk.proj_add_complete,
-                                   group.proj_add_complete, (b,))}
-    out = {name: {} for name in calls}
-    for w in K2_WIDTHS:
-        P, Q = (tuple(random_field(gen, (w,), "cuda", zero_lanes=(i == 2))
-                      for i in range(3)) for _ in range(2))
-        for name, (kern, plain, extra) in calls.items():
-            ms = timing.device_ms(lambda: kern(P, Q, FQ, *extra))
-            cms, got = timing.call_ms(lambda: kern(P, Q, FQ, *extra))
-            if w < 1 << 16 and max_abs_err(got, plain(P, Q, FQ, *extra)):
+
+    def pts(w):
+        return tuple(random_field(gen, (w,), "cuda", zero_lanes=(i == 2))
+                     for i in range(3))
+
+    def rake_args(B):
+        dig = torch.sort(torch.randint(0, 4, (RAKE_K, B), generator=gen,
+                                       device="cuda"), dim=0).values
+        Xa, Ya = (random_field(gen, (RAKE_K * B,), "cuda") for _ in range(2))
+        return dig, JacobianOps(BN254_G1, "cuda").pack_affine((Xa, Ya))
+
+    def calls(name, w):
+        if name == "rake_scan_packed":
+            dig, packed = rake_args(w)
+            return (lambda: rake.rake_scan_packed(dig, packed, w, RAKE_K, FQ),
+                    lambda: rake.rake_scan_packed_plain(dig, packed, w,
+                                                        RAKE_K, FQ), w * RAKE_K)
+        P = pts(w)
+        if name == "proj_dbl_n":
+            return (lambda: gk.proj_dbl_n(P, FQ, b, WINDOW),
+                    lambda: group.proj_dbl_n(P, FQ, b, WINDOW), w)
+        Q = pts(w)
+        extra = (b,) if name == "proj_add_complete" else ()
+        return (lambda: getattr(gk, name)(P, Q, FQ, *extra),
+                lambda: getattr(group, name)(P, Q, FQ, *extra), w)
+
+    out = {name: {} for name in REDESIGNED_WIDTHS}
+    for name, widths in REDESIGNED_WIDTHS.items():
+        for w in widths:
+            kern, plain, elems = calls(name, w)
+            ms = timing.device_ms(kern)
+            cms, got = timing.call_ms(kern)
+            if ((w < 1 << 16 or name == "rake_scan_packed")
+                    and max_abs_err(got, plain())):
                 raise AssertionError(f"{name} differs at width {w}")
             out[name][w] = (ms, cms)
-            log(f"k2 time {name} width={w}: ms={ms:.5f} "
-                f"call_ms={cms:.5f} ns_per_point={ms * 1e6 / w:.3f}")
+            log(f"redesigned time {name} width={w}: ms={ms:.5f} "
+                f"call_ms={cms:.5f} ns_per_elem={ms * 1e6 / elems:.3f}")
+            del kern, plain
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1121,12 +1236,12 @@ def compare_msm_paths(c, reps: int = 10, device: str = "cuda") -> None:
 
 
 def run(argv=()) -> int:
-    """The smoke; with ``--k2``, only phase 2's checks of K1-K3 and the K2
-    phase (registers, spills, SASS, edge lanes, the proof's widths, and the
-    design steps where the package builds them), then the profiled warm
-    2^17 proof and its ranking: run beside another commit's package, it
-    compares that commit's kernels on the same card."""
-    k2_only = "--k2" in argv
+    """The smoke; with ``--redesigned``, only phase 2's checks of K1-K3 and
+    the redesigned kernels' phase (registers, spills, SASS, edge lanes, the
+    proof's widths), then the profiled warm 2^17 proof and its ranking: run
+    beside another commit's package, it compares that commit's kernels on
+    the same card."""
+    redesigned_only = "--redesigned" in argv
     try:
         import torch
     except ImportError:
@@ -1158,14 +1273,15 @@ def run(argv=()) -> int:
     log(f"int32 multiply-add peak (programming guide): {rate:.4g} per s")
     results = {}
     check_kernels(results, rate)
-    check_k2_edges()
-    k2 = {"resources": {repr(k): v for k, v in
-                        k2_resources(strict=not k2_only).items()},
-          "times": time_k2()}
-    if k2_only:
+    check_redesigned_edges()
+    redesigned = {"resources": {repr(k): v for k, v in
+                                redesigned_resources().items()},
+                  "times": time_redesigned()}
+    if redesigned_only:
         _, per_proof, cost = main_path()
         redesign_ranking(results, cost)
-        log(json.dumps({"k2": k2, "launches_per_2pow17_proof": per_proof,
+        log(json.dumps({"redesigned": redesigned,
+                        "launches_per_2pow17_proof": per_proof,
                         "profiled_2pow17_ms": {k: v[2] for k, v in
                                                cost.items()}}))
         log(card)
@@ -1217,9 +1333,9 @@ def run(argv=()) -> int:
             "library_ms": None, "launches_per_2pow17_proof":
                 per_proof.get(name, 0),
         })
-        if name in k2["times"]:
+        if name in redesigned["times"]:
             kernels[-1]["ms_at_widths"] = {w: t[0] for w, t in
-                                           k2["times"][name].items()}
+                                           redesigned["times"][name].items()}
     missing = [k["name"] for k in kernels
                if k["launches"] == 0 and k["name"] not in NO_PATH]
     log(json.dumps({"kernels": kernels}))

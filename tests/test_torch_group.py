@@ -354,6 +354,166 @@ def test_plain_k2_formula_matches_jax_on_edge_lanes(fn, spec, b):
                               np.asarray(w).astype(np.uint32))
 
 
+DBL_CASES = [(FR, B), (FQ, B), (FR, GRUMPKIN_G1.b)]
+DBL_IDS = ["fr", "fq", "grumpkin"]
+
+
+@pytest.mark.parametrize("steps", [1, 3, 16])
+@pytest.mark.parametrize("spec,b", DBL_CASES, ids=DBL_IDS)
+def test_plain_proj_dbl_n_matches_jax_on_edge_lanes(spec, b, steps):
+    """The plain ``proj_dbl_n`` that the redesigned kernel is held against
+    equals the reference's doubling applied ``steps`` times on P of the
+    edge lanes (N lanes, as above), bit for bit."""
+    P, _ = _edge_points(spec, N)
+    jspec = JFR if spec is FR else JFQ
+    want = tuple(jnp.asarray(t.numpy().astype(np.uint32)) for t in P)
+    for _ in range(steps):
+        want = jgroup.proj_dbl(want, jspec, b)
+    got = group.proj_dbl_n(P, spec, b, steps)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy().astype(np.uint32),
+                              np.asarray(w).astype(np.uint32))
+
+
+def _lazy_field(p):
+    """The ops of csrc/field_lazy.cuh on Python integers, asserting that
+    every operand and result lies in [0, 2p)."""
+    def mul(a, b):
+        assert 0 <= a < 2 * p and 0 <= b < 2 * p
+        r = _lazy_mont_mul(a, b, p)
+        assert r < 2 * p
+        return r
+
+    def add(a, b):
+        assert 0 <= a < 2 * p and 0 <= b < 2 * p
+        s = a + b
+        return s - 2 * p if s >= 2 * p else s
+
+    def sub(a, b):
+        assert 0 <= a < 2 * p and 0 <= b < 2 * p
+        d = a - b
+        return d + 2 * p if d < 0 else d
+
+    def times9(t):
+        u = add(t, t)
+        u = add(u, u)
+        u = add(u, u)
+        return add(u, t)
+
+    return mul, add, sub, times9
+
+
+def _lazy_mixed_add(f, p, one, X1, Y1, Z1, X2, Y2):
+    """group.cuh ``mixed_add_unsafe``."""
+    mul, add, sub, _ = f
+    Z1Z1 = mul(Z1, Z1)
+    U2 = mul(X2, Z1Z1)
+    S2 = mul(mul(Y2, Z1), Z1Z1)
+    H = sub(U2, X1)
+    HH = mul(H, H)
+    I = add(HH, HH)
+    I = add(I, I)
+    J = mul(H, I)
+    r = sub(S2, Y1)
+    r = add(r, r)
+    V = mul(X1, I)
+    X3 = sub(sub(mul(r, r), J), add(V, V))
+    YJ = mul(Y1, J)
+    Y3 = sub(mul(r, sub(V, X3)), add(YJ, YJ))
+    ZH = mul(add(Z1, H), add(Z1, H))
+    Z3 = sub(sub(ZH, Z1Z1), HH)
+    if Z1 == 0:
+        return X2, Y2, one
+    return tuple(v - p if v >= p else v for v in (X3, Y3, Z3))
+
+
+def _lazy_dbl_one_lane(f, b3, nine, X, Y, Z):
+    """One doubling of group.cuh ``proj_dbl``, lazy in and out."""
+    mul, add, sub, times9 = f
+    t0 = mul(Y, Y)
+    Z3 = add(t0, t0)
+    Z3 = add(Z3, Z3)
+    Z3 = add(Z3, Z3)
+    t1 = mul(Y, Z)
+    t2 = times9(mul(Z, Z)) if nine else mul(mul(Z, Z), b3)
+    X3 = mul(t2, Z3)
+    Y3 = add(t0, t2)
+    Z3 = mul(t1, Z3)
+    t2 = add(add(t2, t2), t2)
+    t0 = sub(t0, t2)
+    Y3 = add(X3, mul(t0, Y3))
+    X3 = mul(t0, mul(X, Y))
+    return add(X3, X3), Y3, Z3
+
+
+def _lazy_dbl_four_lanes(f, b3, nine, X, Y, Z):
+    """One doubling of group_ops.cu ``proj_dbl_n_kernel``: lane r computes
+    one product a level; the sums are formed on every lane from the
+    products shuffled in.  Returns lane 3's X and the common Y, Z."""
+    mul, add, sub, times9 = f
+    lanes = [(X, Y, Z)] * 4
+    m1 = [mul(x if r == 3 else (z if r == 2 else y), y if r in (0, 3) else z)
+          for r, (x, y, z) in enumerate(lanes)]
+    t0, t2 = m1[0], m1[2]
+    t2 = times9(t2) if nine else mul(t2, b3)
+    z3 = add(t0, t0)
+    z3 = add(z3, z3)
+    z3 = add(z3, z3)
+    y3 = add(t0, t2)
+    t0x = sub(t0, add(add(t2, t2), t2))
+    m2 = [mul(t2 if r == 0 else (m1[r] if r == 1 else t0x),
+              z3 if r <= 1 else (y3 if r == 2 else m1[r])) for r in range(4)]
+    return add(m2[3], m2[3]), add(m2[0], m2[2]), m2[1]
+
+
+@pytest.mark.parametrize("spec,b", DBL_CASES, ids=DBL_IDS)
+def test_lazy_formulas_match_plain(spec, b):
+    """The lazy forms of the formulas this port's kernels run (group.cuh
+    ``mixed_add_unsafe``, which K3 and K5 share, and ``proj_dbl`` over 16
+    doublings, one lane and split over four as ``proj_dbl_n_kernel`` does)
+    keep every value in [0, 2p) and, once reduced, equal the plain
+    formulas on the edge lanes, bit for bit."""
+    p = spec.modulus
+    f = _lazy_field(p)
+    nine = b == B
+    b3 = limbs_to_ints(np.asarray(group.b3_limbs(spec, b))[:, None])[0]
+    assert (b3 == 9 * spec.R % p) == nine
+    one = spec.R % p
+    P, Q = _edge_points(spec, 10)
+    ints = [limbs_to_ints(t.numpy().astype(np.uint32)) for t in P + Q]
+    steps = 16
+    madd = [limbs_to_ints(t.numpy().astype(np.uint32))
+            for t in group.mixed_add_unsafe(P, Q[:2], spec)]
+    dbl = [limbs_to_ints(t.numpy().astype(np.uint32))
+           for t in group.proj_dbl_n(P, spec, b, steps)]
+    for j, (X1, Y1, Z1, X2, Y2, _) in enumerate(zip(*ints)):
+        got = _lazy_mixed_add(f, p, one, X1, Y1, Z1, X2, Y2)
+        assert got == tuple(c[j] for c in madd)
+        for form in (_lazy_dbl_one_lane, _lazy_dbl_four_lanes):
+            pt = (X1, Y1, Z1)
+            for _ in range(steps):
+                pt = form(f, b3, nine, *pt)
+            assert tuple(v - p if v >= p else v for v in pt) == tuple(
+                c[j] for c in dbl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 3, 33, 8192 + 5])
+@pytest.mark.parametrize("spec,b", DBL_CASES, ids=DBL_IDS)
+def test_proj_dbl_n_kernel_edge_lanes_on_card(spec, b, w):
+    """The redesigned ``proj_dbl_n`` (lazy through every step, four lanes a
+    point; 9t by additions for b = 3, the product by 3b for Grumpkin)
+    equals its plain version on the edge lanes, for 1 and 16 steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    P, _ = _edge_points(spec, w)
+    for steps in (1, 16):
+        got = gk.proj_dbl_n(tuple(t.cuda() for t in P), spec, b, steps)
+        want = group.proj_dbl_n(P, spec, b, steps)
+        for g, p in zip(got, want):
+            assert torch.equal(g.cpu(), p)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("w", K2_EDGE_WIDTHS)
 @pytest.mark.parametrize("fn,spec,b", EDGE_CASES, ids=EDGE_IDS)

@@ -1,7 +1,9 @@
 """aztec_tpu_torch.msm against aztec_tpu.msm and the host golden.
 
 - the rake's plain version (K3's twin) against the reference's
-  ``_rake_scan_packed_xla`` at K=4, B=128, bit-exact;
+  ``_rake_scan_packed_xla`` at K=4, B=128, bit-exact, on table points and
+  on edge lanes (runs, restarts, alternating digits, P = Q and P = -Q
+  inside a run, coordinates 0, 1, p - 1);
 - the composed bucket phase over rounds (``pippenger._bucket_phase``) and
   ``_finish`` (bucket phase + Horner fold) on the IntModOps mock group,
   as tests/test_chunked.py does, and against the reference's ``_finish``;
@@ -28,11 +30,11 @@ from aztec_tpu.msm import glv as jglv
 from aztec_tpu_torch.curves.golden import BN254
 from aztec_tpu_torch.curves.group_ops import IntModOps, JacobianOps
 from aztec_tpu_torch.curves.io import jacobian_to_host
-from aztec_tpu_torch.curves.spec import BN254_G1
-from aztec_tpu_torch.ff import FQ
+from aztec_tpu_torch.curves.spec import BN254_G1, GRUMPKIN_G1
+from aztec_tpu_torch.ff import FQ, FR
 from aztec_tpu_torch.ff import field_kernels as fk
 from aztec_tpu_torch.msm import chunked, glv, pippenger, rake
-from aztec_tpu_torch.numeric.bigint import ints_to_limbs
+from aztec_tpu_torch.numeric.bigint import ints_to_limbs, limbs_to_ints
 from aztec_tpu_torch.srs.reference_string import DEV_TAU, load_point_table
 
 R_ORDER = BN254_G1.order
@@ -74,6 +76,61 @@ def test_rake_plain_matches_reference():
         w = np.asarray(w).reshape(16, K * B).astype(np.int64)
         assert np.array_equal(g.numpy().astype(np.int64), w)
         assert torch.equal(g, v)
+
+
+def _rake_edge_lanes(spec, B, K, seed=5):
+    """K3's inputs (digits (K, B), packed points (16, K * B), K-major) for
+    B lanes of K steps of canonical random coordinates, the lanes cycling
+    through: one run of all K digits, a restart at every step, alternating
+    digits, runs of two whose second point equals the first (P = Q: the
+    first step restarts with Z = 1) or is its negative (P = -Q),
+    coordinates drawn from {0, 1, p - 1}, and sorted random digits."""
+    p = spec.modulus
+    rng = np.random.default_rng(seed)
+    X, Y = (rng.integers(0, 1 << 16, (16, K, B)) for _ in range(2))
+    for c in (X, Y):                       # top limb below p's: canonical
+        c[15] = rng.integers(0, 0x3064, (K, B))
+    k = np.broadcast_to(np.arange(K)[:, None], (K, B))
+    kind = np.broadcast_to(np.arange(B)[None, :] % 7, (K, B))
+    dig = np.select([kind == 0, kind == 1, kind == 2, (kind == 3) | (kind == 4)],
+                    [5, k, k % 2, k // 2],
+                    np.sort(rng.integers(0, 4, (K, B)), axis=0))
+    pair = (k % 2 == 1) & ((kind == 3) | (kind == 4))
+    X[:, pair] = np.roll(X, 1, axis=1)[:, pair]
+    Y[:, pair] = np.roll(Y, 1, axis=1)[:, pair]
+    neg = pair & (kind == 4)
+    Y[:, neg] = ints_to_limbs([-v % p for v in limbs_to_ints(Y[:, neg])])
+    special = ints_to_limbs([0, 1, p - 1])
+    edge = kind == 5
+    for c in (X, Y):
+        c[:, edge] = special[:, rng.integers(0, 3, int(edge.sum()))]
+    curve = BN254_G1 if spec is FQ else GRUMPKIN_G1
+    packed = JacobianOps(curve, CPU).pack_affine(
+        tuple(torch.from_numpy(c.reshape(16, K * B).astype(np.int32))
+              for c in (X, Y)))
+    return dig.astype(np.uint32), packed
+
+
+def test_rake_plain_matches_reference_on_edge_lanes():
+    """The K3 plain version the kernel is held against on the card equals
+    the reference's on the edge lanes, bit for bit (K=4, B=128: the shape
+    of the test above, so the reference's compiled scan is reused)."""
+    K, B = 4, 128
+    dig, packed = _rake_edge_lanes(FQ, B, K)
+    got = rake.rake_scan_packed_plain(torch.from_numpy(dig.astype(np.int64)),
+                                      packed, B, K, FQ)
+    pk = packed.numpy().view(np.uint32).reshape(16, K, B // 128, 128)
+    want = _rake_scan_packed_xla(JJacobianOps(JG1),
+                                 jnp.asarray(dig.reshape(K, B // 128, 128)),
+                                 jnp.asarray(pk), B, K)
+    for g, w in zip(got, want):
+        w = np.asarray(w).reshape(16, K * B).astype(np.int64)
+        assert np.array_equal(g.numpy().astype(np.int64), w)
+    # the lanes reach the cases they name: P = Q leaves Z = 0 after the
+    # pair's second step, and the step after restarts with Z = 1
+    Z = got[2].numpy().reshape(16, K, B)
+    assert not Z[:, 1, 3].any() and not Z[:, 1, 4].any()
+    assert np.array_equal(Z[:, 2, 3], ints_to_limbs([FQ.R % FQ.modulus])[:, 0])
 
 
 def test_pack_affine_matches_reference():
@@ -178,6 +235,23 @@ def test_msm_matches_golden(sizes, c):
     P = chunked.msm_chunked((X, Y), arg, BN254_G1, c=c, K=16)
     got = jacobian_to_host(P, BN254_G1)
     assert got == [_golden(k, m) for k, m in zip(ks, sizes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33, 128, 4096 + 5])
+@pytest.mark.parametrize("spec", [FR, FQ], ids=["fr", "fq"])
+def test_k3_rake_edge_lanes_on_card(spec, B):
+    """The redesigned K3 (lazy mixed add, canonical accumulator) equals its
+    plain version on the edge lanes for K in {1, 4, 64}."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    for K in (1, 4, 64):
+        dig, packed = _rake_edge_lanes(spec, B, K)
+        dig = torch.from_numpy(dig.astype(np.int64))
+        got = rake.rake_scan_packed(dig.cuda(), packed.cuda(), B, K, spec)
+        want = rake.rake_scan_packed_plain(dig, packed, B, K, spec)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda
