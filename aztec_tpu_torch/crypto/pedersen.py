@@ -1,0 +1,332 @@
+"""Pedersen hash over Grumpkin, on the host.
+
+Port of aztec_tpu/crypto/pedersen.py, line for line, in Python integers
+(the reference's own host code; nothing here touches a device).  It is a
+structural re-implementation of barretenberg's crypto/pedersen/pedersen.cpp:
+deterministic generators via hash_to_curve(seed) (ecc/groups/
+affine_element_impl.hpp:117-125), per-generator fixed-base ladders of
+quad-doubled points (pedersen.cpp:115-171), 2-bit fixed-WNAF recoding
+(ecc/groups/wnaf.hpp fixed_wnaf), and the stitched "hash ladders" that split
+a 254-bit input across two generators for injectivity (pedersen.cpp:38-111).
+
+It serves transcript hashing (the ``pedersen_blake2s`` hasher of
+``transcript/transcript.py``) and single hashes.
+
+Grumpkin: y^2 = x^3 - 17 over Fq = bn254-Fr; group order = bn254-Fq
+(ecc/curves/grumpkin/grumpkin.hpp:11-29).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import List, Tuple
+
+from ..ff.bn254 import FR_MOD as P  # grumpkin coordinate field
+from .keccak import keccak256
+
+CURVE_B = (-17) % P
+QUAD_LENGTH = 129  # 256/2 + 1
+NUM_BITS = 254
+NUM_QUADS = 127
+
+GRUMPKIN_GEN = (
+    1,
+    0x2CF135E7506A45D632D270D45F1181294833FC48D823F272C,
+)
+
+
+# ---- affine grumpkin ops (ints; None = infinity) ----------------------------
+
+
+def g_add(a, b):
+    if a is None:
+        return b
+    if b is None:
+        return a
+    x1, y1 = a
+    x2, y2 = b
+    if x1 == x2:
+        if (y1 + y2) % P == 0:
+            return None
+        return g_dbl(a)
+    lam = (y2 - y1) * pow(x2 - x1, -1, P) % P
+    x3 = (lam * lam - x1 - x2) % P
+    return (x3, (lam * (x1 - x3) - y1) % P)
+
+
+def g_dbl(a):
+    if a is None:
+        return None
+    x, y = a
+    if y == 0:
+        return None
+    lam = 3 * x * x * pow(2 * y, -1, P) % P
+    x3 = (lam * lam - 2 * x) % P
+    return (x3, (lam * (x - x3) - y) % P)
+
+
+def g_neg(a):
+    if a is None:
+        return None
+    return (a[0], (-a[1]) % P)
+
+
+def g_on_curve(a) -> bool:
+    if a is None:
+        return True
+    x, y = a
+    return (y * y - (x * x * x + CURVE_B)) % P == 0
+
+
+def _sqrt(v: int):
+    """Tonelli-Shanks over Fq (p % 4 == 1 here, use generic)."""
+    if v == 0:
+        return 0
+    if pow(v, (P - 1) // 2, P) != 1:
+        return None
+    # p - 1 = q * 2^s
+    q, s = P - 1, 0
+    while q % 2 == 0:
+        q //= 2
+        s += 1
+    z = 5  # known non-residue for this field (the multiplicative generator)
+    while pow(z, (P - 1) // 2, P) == 1:
+        z += 1
+    m, c, t, r = s, pow(z, q, P), pow(v, q, P), pow(v, (q + 1) // 2, P)
+    while t != 1:
+        t2 = t
+        i = 0
+        while t2 != 1:
+            t2 = t2 * t2 % P
+            i += 1
+        b = pow(c, 1 << (m - i - 1), P)
+        m, c = i, b * b % P
+        t = t * c % P
+        r = r * b % P
+    return r
+
+
+def hash_to_curve(seed: int):
+    """ref: affine_element_impl.hpp:117-125 + keccak.cpp hash_field_element."""
+    data = seed.to_bytes(8, "big") + b"\x00" * 24
+    h = keccak256(data)
+    words = [int.from_bytes(h[8 * i : 8 * i + 8], "little") for i in range(4)]
+    compressed = words[0] | words[1] << 64 | words[2] << 128 | words[3] << 192
+    x = (compressed & ~(1 << 255)) % P
+    y_bit = (compressed >> 255) & 1
+    y2 = (x * x * x + CURVE_B) % P
+    y = _sqrt(y2)
+    if y is None:
+        return None
+    if (y & 1) != y_bit:
+        y = (-y) % P
+    return (x, y)
+
+
+@functools.lru_cache(maxsize=None)
+def get_generator(index: int):
+    """Deterministic generator stream (ref: group.hpp:42-57)."""
+    count = -1
+    seed = 0
+    while True:
+        seed += 1
+        cand = hash_to_curve(seed)
+        if cand is not None and g_on_curve(cand):
+            count += 1
+            if count == index:
+                return cand
+
+
+@functools.lru_cache(maxsize=None)
+def _ladder_from_point(pt: Tuple[int, int]) -> Tuple[Tuple, ...]:
+    """[(one, three)] * QUAD_LENGTH, MSB-first (ref: pedersen.cpp:115-134),
+    built over an arbitrary base point (generators, or grumpkin g1::one
+    for the g1 ladder used by group fixed-base muls)."""
+    acc = pt
+    ones = []
+    threes = []
+    for _ in range(QUAD_LENGTH):
+        ones.append(acc)
+        acc = g_dbl(acc)
+        threes.append(g_add(ones[-1], acc))
+        acc = g_dbl(acc)
+    ones.reverse()
+    threes.reverse()
+    return tuple(zip(ones, threes))
+
+
+def _ladder(generator_index: int) -> Tuple[Tuple, ...]:
+    return _ladder_from_point(get_generator(generator_index))
+
+
+def g1_ladder() -> Tuple[Tuple, ...]:
+    """Ladder over grumpkin g1::one (ref: pedersen get_g1_ladder)."""
+    return _ladder_from_point(GRUMPKIN_GEN)
+
+
+@functools.lru_cache(maxsize=None)
+def selectors_from_ladder(lad: Tuple[Tuple, ...]):
+    """Turbo fixed-base ECC gate selector coefficients per ladder entry
+    (ref: pedersen.cpp:135-170): for entry (one=(xb,yb), three=(xg,yg)):
+
+        q_x_1 = (xg - xb)/8,  q_x_2 = (9 xb - xg)/8,
+        q_y_1 = (3 yb - yg)/d, q_y_2 = (xb yg - 3 xg yb)/d,  d = 3(xb - xg)
+    """
+    inv8 = pow(8, -1, P)
+    out = []
+    for (one, three) in lad:
+        xb, yb = one
+        xg, yg = three
+        q_x_1 = (xg - xb) * inv8 % P
+        q_x_2 = (9 * xb - xg) * inv8 % P
+        d = 3 * (xb - xg) % P
+        dinv = pow(d, -1, P)
+        q_y_1 = (3 * yb - yg) * dinv % P
+        q_y_2 = (xb * yg - 3 * xg * yb) * dinv % P
+        out.append((q_x_1, q_x_2, q_y_1, q_y_2))
+    return out
+
+
+def ladder_selectors(generator_index: int, hash_variant: bool = False):
+    lad = _hash_ladder(generator_index) if hash_variant else _ladder(generator_index)
+    return selectors_from_ladder(tuple(lad))
+
+
+@functools.lru_cache(maxsize=None)
+def _hash_ladder(hash_index: int) -> List[Tuple]:
+    """Stitched ladder: 127 high quads on generator 2i, 2 low quads on
+    generator 2i+1 (ref: pedersen.cpp:91-104)."""
+    lad_a = _ladder(hash_index * 2)
+    lad_b = _ladder(hash_index * 2 + 1)
+    first_seg = QUAD_LENGTH - 2
+    return [lad_a[j + (QUAD_LENGTH - first_seg)] for j in range(first_seg)] + [
+        lad_b[j + (QUAD_LENGTH - 2)] for j in range(2)
+    ]
+
+
+MASK64 = (1 << 64) - 1
+
+
+def fixed_wnaf(scalar: int, num_bits: int, wnaf_bits: int = 2) -> Tuple[List[int], bool]:
+    """2-bit fixed-window NAF (ref: ecc/groups/wnaf.hpp:163-191).
+
+    Returns (entries MSB-first, skew).  Entry layout matches the reference:
+    low bits = digit>>1, bit 31 = negative.
+    """
+    entries_n = (num_bits + wnaf_bits - 1) // wnaf_bits
+    mask = (1 << wnaf_bits) - 1
+    skew = (scalar & 1) == 0
+    wnaf = [0] * entries_n
+    previous = ((scalar >> 0) & mask) + (1 if skew else 0)
+    for round_i in range(1, entries_n - 1):
+        slice_ = (scalar >> (round_i * wnaf_bits)) & mask
+        predicate = 1 if (slice_ & 1) == 0 else 0
+        v = (previous - (predicate << wnaf_bits)) & MASK64
+        if predicate:
+            v ^= MASK64
+        wnaf[entries_n - round_i] = (v >> 1) | (predicate << 31)
+        previous = slice_ + predicate
+    final_bits = num_bits - wnaf_bits * (entries_n - 1)
+    slice_ = (scalar >> ((entries_n - 1) * wnaf_bits)) & ((1 << final_bits) - 1)
+    predicate = 1 if (slice_ & 1) == 0 else 0
+    v = (previous - (predicate << wnaf_bits)) & MASK64
+    if predicate:
+        v ^= MASK64
+    wnaf[1] = (v >> 1) | (predicate << 31)
+    wnaf[0] = (slice_ + predicate) >> 1
+    return wnaf, skew
+
+
+def g_mul(k: int, a):
+    acc = None
+    while k:
+        if k & 1:
+            acc = g_add(acc, a)
+        a = g_dbl(a)
+        k >>= 1
+    return acc
+
+
+def num_quads_for(num_bits: int) -> int:
+    base = (num_bits - 1) >> 1
+    return base + 1 if (base << 1) + 1 < num_bits else base
+
+
+def _ladder_mul(value: int, num_bits: int, full_ladder, skew_point):
+    """Shared fixed-base ladder walk (ref: group.hpp
+    fixed_base_scalar_mul_internal / pedersen.hpp:44-80)."""
+    value %= P
+    n = num_quads_for(num_bits)
+    ladder = full_ladder[QUAD_LENGTH - n - 1 :]
+    base = value if (value & 1) else (value - 2) % P
+    wnaf, skew = fixed_wnaf(base, (n << 1) + 1, 2)
+    acc = ladder[0][0]
+    if skew:
+        acc = g_add(acc, skew_point)
+    for i in range(n):
+        entry = wnaf[i + 1]
+        pt = ladder[i + 1][1] if (entry & 0xFFFFFF) == 1 else ladder[i + 1][0]
+        acc = g_add(acc, g_neg(pt) if (entry >> 31) & 1 else pt)
+    return acc
+
+
+def fixed_base_scalar_mul(value: int, num_bits: int, generator_index: int = 0):
+    """value * G_idx via the ladder (ref: pedersen.hpp:44-80)."""
+    return _ladder_mul(value, num_bits, _ladder(generator_index),
+                       get_generator(generator_index))
+
+
+def fixed_base_scalar_mul_g1(value: int, num_bits: int):
+    """value * grumpkin-g1::one (ref: group.hpp fixed_base_scalar_mul_g1)."""
+    return _ladder_mul(value, num_bits, g1_ladder(), GRUMPKIN_GEN)
+
+
+def hash_single(value: int, hash_index: int):
+    """ref: pedersen.cpp:230-272."""
+    value %= P
+    # ladder slice for 254 bits: drop the first entry (get_ladder_internal)
+    ladder = _hash_ladder(hash_index)[QUAD_LENGTH - NUM_QUADS - 1 :]
+    base = value if (value & 1) else (value - 2) % P
+    wnaf, skew = fixed_wnaf(base, 2 * NUM_QUADS + 1, 2)
+
+    acc = ladder[0][0]
+    if skew:
+        acc = g_add(acc, get_generator(hash_index * 2 + 1))
+    for i in range(NUM_QUADS):
+        entry = wnaf[i + 1]
+        pt = ladder[i + 1][1] if (entry & 0xFFFFFF) == 1 else ladder[i + 1][0]
+        if (entry >> 31) & 1:
+            acc = g_add(acc, g_neg(pt))
+        else:
+            acc = g_add(acc, pt)
+    if value == 0:
+        return None
+    return acc
+
+
+def compress_native(left: int, right: int, hash_index: int = 0) -> int:
+    """ref: pedersen.cpp:274-299 (infinity -> x = 0, the affine_element(0,0)
+    convention used by encrypt_native)."""
+    r = g_add(hash_single(left, hash_index), hash_single(right, hash_index + 1))
+    return r[0] if r is not None else 0
+
+
+def encrypt_native(inputs, hash_index: int = 0):
+    acc = None
+    for i, v in enumerate(inputs):
+        acc = g_add(acc, hash_single(v, hash_index + i))
+    return acc if acc is not None else (0, 0)
+
+
+def compress_many(inputs, hash_index: int = 0) -> int:
+    return encrypt_native(inputs, hash_index)[0]
+
+
+def compress_buffer_to_field(data: bytes) -> int:
+    """ref: pedersen.cpp compress_native_buffer_to_field — 31-byte chunks."""
+    chunk = 31
+    elements = [
+        int.from_bytes(data[i : i + chunk], "big") % P
+        for i in range(0, len(data), chunk)
+    ]
+    return compress_many(elements)

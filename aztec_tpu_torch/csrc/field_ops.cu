@@ -18,7 +18,9 @@
 // Every entry point takes the field (0 = Fr, 1 = Fq), device pointers to
 // contiguous (16, n) uint32 planes, n and the CUDA stream, launches on that
 // stream and returns cudaGetLastError().
-#include "field.cuh"
+#include "field_lazy.cuh"
+
+constexpr int FFT_THREADS = 128;
 
 using namespace aztec;
 
@@ -51,18 +53,100 @@ __global__ void sub_mod_kernel(const u32* __restrict__ a,
   store(out, n, j, sub<F>(load(a, n, j), load(b, n, j)));
 }
 
+// One FFT butterfly, top + w bot and top - w bot, with the reference's
+// semantics on any 16-bit limbs: the product is the lazy carry-chain form
+// (field_lazy.cuh), reduced, where bot and w lie below p, and the canonical
+// C form otherwise; the add and sub are field.cuh's, which take any limbs.
 template <class F>
-__global__ void butterfly_kernel(const u32* __restrict__ top,
-                                 const u32* __restrict__ bot,
-                                 const u32* __restrict__ tw,
-                                 u32* __restrict__ plus, u32* __restrict__ minus,
-                                 long long n) {
-  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  Elem t = load(top, n, j);
-  Elem m = mul<F>(load(bot, n, j), load(tw, n, j));
-  store(plus, n, j, add<F>(t, m));
-  store(minus, n, j, sub<F>(t, m));
+__device__ __forceinline__ void butterfly(const Elem& top, const Elem& bot,
+                                          const Elem& w, Elem& plus,
+                                          Elem& minus) {
+  Elem m;
+  if ((bot.v[NL - 1] < F::P(NL - 1)) & (w.v[NL - 1] < F::P(NL - 1)))
+    m = lazy::canon<F>(lazy::mul<F>(bot, w));
+  else
+    m = mul<F>(bot, w);
+  plus = add<F>(top, m);
+  minus = sub<F>(top, m);
+}
+
+// S consecutive radix-2 Stockham stages t .. t + S - 1 of an FFT, one thread
+// a group, the group's 2^S elements in registers.
+//
+// Stage t holds A_t (r_t rows of L = 2^t columns, element (b, j) at column
+// b L + j of the (16, n) planes), and A_{t+1}[b, j (+ L)] = A_t[b, j] +-
+// w_{2L}^j A_t[b + r_{t+1}, j].  After S stages, A_{t+S}[b, j + e L] for
+// e < 2^S depends only on A_t[b + m R, j] for m < 2^S (R = r_{t+S}), so the
+// thread of group (b, j), g = b L + j < G = R L, loads those, runs the S
+// stages' butterflies in the order and on the operands of S separate
+// stages (so every stage boundary is bit-identical), and stores its 2^S
+// outputs.  Consecutive threads read consecutive columns; the outputs land
+// 2^S apart where L = 1, L apart otherwise.
+//
+// Element m of the group is at column g + m G of in_lo for m < 2^(S-1) and
+// at column g + (m - 2^(S-1)) G of in_hi (in_lo + 2^(S-1) G for a stage;
+// the `bot` operand for the single butterfly of `fk_butterfly`); output e
+// at column b out_row + j + e L of out_lo, or of out_hi for the upper half
+// (out_lo + 2^(S-1) L).  Twiddle w_{2L'}^k of stage L' = 2^u L is column
+// k tw_stride / 2^u of the root table (tw_stride = n / 2L).
+template <class F, int S>
+__global__ void __launch_bounds__(FFT_THREADS) fft_stages_kernel(
+    const u32* __restrict__ in_lo, const u32* __restrict__ in_hi,
+    long long in_n, const u32* __restrict__ tw, long long tw_n,
+    long long tw_stride, u32* __restrict__ out_lo, u32* __restrict__ out_hi,
+    long long out_n, long long L, long long G, long long out_row) {
+  constexpr int E = 1 << S, H = E / 2;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= G) return;
+  const long long b = g / L, j = g - b * L;
+  Elem x[E];
+#pragma unroll
+  for (int m = 0; m < E; ++m)
+    x[m] = m < H ? load(in_lo, in_n, g + m * G) : load(in_hi, in_n,
+                                                         g + (m - H) * G);
+  // stage u: element (m, e) at x[m 2^u + e], m < 2^(S-u), e < 2^u
+#pragma unroll
+  for (int u = 0; u < S; ++u) {
+    const int half = 1 << (S - u - 1), ne = 1 << u;
+    Elem y[E];
+#pragma unroll
+    for (int e = 0; e < ne; ++e) {
+      const Elem w = load(tw, tw_n, (j + e * L) * (tw_stride >> u));
+#pragma unroll
+      for (int m = 0; m < half; ++m)
+        butterfly<F>(x[m * ne + e], x[(m + half) * ne + e], w,
+                     y[m * 2 * ne + e], y[m * 2 * ne + e + ne]);
+    }
+#pragma unroll
+    for (int k = 0; k < E; ++k) x[k] = y[k];
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (e < H)
+      store(out_lo, out_n, b * out_row + j + e * L, x[e]);
+    else
+      store(out_hi, out_n, b * out_row + j + (e - H) * L, x[e]);
+  }
+}
+
+template <class F>
+int fft_stages(int s, const u32* in, u32* out, const u32* tw, long long tw_n,
+               long long n, long long L, cudaStream_t st) {
+  const long long G = n >> s, H = 1LL << (s - 1);
+  const unsigned int blocks = (unsigned int)((G + FFT_THREADS - 1) /
+                                             FFT_THREADS);
+#define STAGES(S)                                                           \
+  fft_stages_kernel<F, S><<<blocks, FFT_THREADS, 0, st>>>(                  \
+      in, in + H * G, n, tw, tw_n, n / (2 * L), out, out + H * L, n, L, G, \
+      L << S)
+  switch (s) {
+    case 1: STAGES(1); break;
+    case 2: STAGES(2); break;
+    case 3: STAGES(3); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef STAGES
+  return (int)cudaGetLastError();
 }
 
 template <class F>
@@ -108,10 +192,35 @@ int fk_sub_mod(int field, const u32* a, const u32* b, u32* out, long long n,
   return (int)cudaGetLastError();
 }
 
+// one butterfly an element of (16, n) planes: the stage kernel with S = 1,
+// one row (G = L = n), the twiddles a plane of their own
 int fk_butterfly(int field, const u32* top, const u32* bot, const u32* tw,
                  u32* plus, u32* minus, long long n, void* stream) {
-  DISPATCH(field, butterfly_kernel, top, bot, tw, plus, minus, n);
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned int blocks = (unsigned int)((n + FFT_THREADS - 1) /
+                                             FFT_THREADS);
+  if (field == 0)
+    fft_stages_kernel<Fr, 1><<<blocks, FFT_THREADS, 0, s>>>(
+        top, bot, n, tw, n, 1, plus, minus, n, n, n, 0);
+  else if (field == 1)
+    fft_stages_kernel<Fq, 1><<<blocks, FFT_THREADS, 0, s>>>(
+        top, bot, n, tw, n, 1, plus, minus, n, n, n, 0);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// stages t .. t + s - 1 (1 <= s <= 3) of a Stockham FFT of size n: `in` the
+// (16, n) planes of stage t (rows of L = 2^t columns), `out` those of stage
+// t + s; tw the (16, tw_n) root table w_n^k, k < tw_n = n / 2
+int fk_fft_stages(int field, const u32* in, u32* out, const u32* tw,
+                  long long tw_n, long long n, long long L, int s,
+                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (s < 1 || s > 3 || (L << s) > n) return (int)cudaErrorInvalidValue;
+  if (field == 0) return fft_stages<Fr>(s, in, out, tw, tw_n, n, L, st);
+  if (field == 1) return fft_stages<Fq>(s, in, out, tw, tw_n, n, L, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 int fk_mul_add(int field, const u32* a, const u32* b, const u32* c, u32* out,

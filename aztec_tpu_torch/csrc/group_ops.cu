@@ -14,8 +14,8 @@
 //
 // Redesigned for the card, in the order of the 2^17 proof's device time:
 // gk_add_unsafe and gk_proj_add (first), gk_proj_dbl_n and gk_proj_dbl,
-// its one-step launch (second); gk_mixed_add runs the lazy formula of
-// group.cuh.  gk_j2c and gk_c2j keep the canonical arithmetic of
+// its one-step launch (second); gk_mixed_add and gk_j2c run the entry
+// formulas of group.cuh.  gk_c2j keeps the canonical arithmetic of
 // field.cuh, one thread per point in 256-thread blocks.  Each design step
 // below was kept only where it measured faster at the proof's widths on
 // one card against the step before, and every kernel stays bit-exact with
@@ -57,16 +57,25 @@
 //    instead of eight (three for b != 3).  Faster than step 1 at every
 //    width measured, the proof's narrow ones and 8,192 points alike.
 //
-// Precondition: every input coordinate is canonical (below p), as every
-// caller's points are.  The sums of raw inputs (X1 + Y1, Z1 + Z2) are taken
-// without a correction and `is_zero` reads the raw Z, so on limbs at or
-// above p the redesigned kernels leave the plain formulas, which reduce
-// any 256-bit operand first.
+// Inputs: any 16-bit limbs, as the reference takes.  Each kernel runs the
+// entry formulas of group.cuh, which take the lazy path above where every
+// operand of a point lies below p and the exact (canonical field.cuh)
+// formula otherwise; proj_dbl_n decides once a warp, since its four lanes a
+// point exchange products by shuffles: a warp that holds a coordinate at or
+// above p runs the exact doublings one thread a point.  The exact formulas
+// are inlined, so no call frame comes with them.  Measured against the
+// lazy-only kernels on one card (PERF.md): the range test ahead of the
+// formula made the two adds wait on all 96 loads before their first
+// product (4-6% slower at 8,192-24,576 points), so they start their first
+// lazy products before it; proj_add then spilled under its cap of 128
+// registers and now runs in blocks of 128 under a cap of 170 (157 used).
 #include "group.cuh"
 
 // step 3: each kernel's largest block and the blocks an SM must hold; the
 // register cap they imply, 65536 / (threads x blocks), leaves no spill
-constexpr int PA_THREADS = 256, PA_BLOCKS = 2;  // proj_add: 128 registers
+constexpr int PA_THREADS = 128, PA_BLOCKS = 3;  // proj_add: 170 registers
+// (b = 3; 256 x 2, a cap of 128, spilled beside the inlined exact
+// formula; any other b keeps the products by 3b and runs uncapped)
 constexpr int AU_THREADS = 128, AU_BLOCKS = 3;  // add_unsafe: 168
 // proj_dbl_n: lanes a point, and the largest block
 constexpr int DBL_LANES = 4, DBL_THREADS = 128;
@@ -89,91 +98,23 @@ __global__ void mixed_add_kernel(const u32* X1, const u32* Y1, const u32* Z1,
   store_pt(X3, Y3, Z3, n, j, R);
 }
 
-// Jacobian + Jacobian (11M + 5S) on lazy values; the canonical inputs
-// decide infinity, and only the result of the formula is reduced
-template <class F>
-__device__ __forceinline__ Pt add_unsafe_lazy(const Pt& P, const Pt& Q) {
-  const Elem &X1 = P.x, &Y1 = P.y, &Z1 = P.z;
-  const Elem &X2 = Q.x, &Y2 = Q.y, &Z2 = Q.z;
-  Elem Z1Z1 = lazy::sqr<F>(Z1);
-  Elem Z2Z2 = lazy::sqr<F>(Z2);
-  Elem U1 = lazy::mul<F>(X1, Z2Z2);
-  Elem U2 = lazy::mul<F>(X2, Z1Z1);
-  Elem S1 = lazy::mul<F>(lazy::mul<F>(Y1, Z2), Z2Z2);
-  Elem S2 = lazy::mul<F>(lazy::mul<F>(Y2, Z1), Z1Z1);
-  Elem H = lazy::sub<F>(U2, U1);
-  Elem I = lazy::sqr<F>(lazy::add<F>(H, H));
-  Elem J = lazy::mul<F>(H, I);
-  Elem r = lazy::sub<F>(S2, S1);
-  r = lazy::add<F>(r, r);
-  Elem V = lazy::mul<F>(U1, I);
-  Elem X3 = lazy::sub<F>(lazy::sub<F>(lazy::sqr<F>(r), J),
-                         lazy::add<F>(V, V));
-  Elem SJ = lazy::mul<F>(S1, J);
-  Elem Y3 = lazy::sub<F>(lazy::mul<F>(r, lazy::sub<F>(V, X3)),
-                         lazy::add<F>(SJ, SJ));
-  // canonical inputs: Z1 + Z2 < 2p
-  Elem ZZ = lazy::sqr<F>(lazy::add_nc(Z1, Z2));
-  Elem Z3 = lazy::mul<F>(lazy::sub<F>(lazy::sub<F>(ZZ, Z1Z1), Z2Z2), H);
-  bool p_inf = is_zero(Z1);
-  bool q_inf = is_zero(Z2);
-  Pt out;
-  out.x = select(p_inf, X2, select(q_inf, X1, lazy::canon<F>(X3)));
-  out.y = select(p_inf, Y2, select(q_inf, Y1, lazy::canon<F>(Y3)));
-  out.z = select(p_inf, Z2, select(q_inf, Z1, lazy::canon<F>(Z3)));
-  return out;
-}
-
-// RCB16 algorithm 7 (a = 0) on lazy values, the operation order of
-// group.cuh `proj_add`; NINE: 3b = 9 by additions
-template <class F, bool NINE>
-__device__ __forceinline__ Pt proj_add_lazy(const Pt& P, const Pt& Q,
-                                            const Elem& b3) {
-  const Elem &X1 = P.x, &Y1 = P.y, &Z1 = P.z;
-  const Elem &X2 = Q.x, &Y2 = Q.y, &Z2 = Q.z;
-  Elem t0 = lazy::mul<F>(X1, X2);
-  Elem t1 = lazy::mul<F>(Y1, Y2);
-  Elem t2 = lazy::mul<F>(Z1, Z2);
-  // sums of canonical inputs are below 2p
-  Elem t3 = lazy::mul<F>(lazy::add_nc(X1, Y1), lazy::add_nc(X2, Y2));
-  t3 = lazy::sub<F>(t3, lazy::add<F>(t0, t1));
-  Elem t4 = lazy::mul<F>(lazy::add_nc(Y1, Z1), lazy::add_nc(Y2, Z2));
-  t4 = lazy::sub<F>(t4, lazy::add<F>(t1, t2));
-  Elem X3 = lazy::mul<F>(lazy::add_nc(X1, Z1), lazy::add_nc(X2, Z2));
-  Elem Y3 = lazy::sub<F>(X3, lazy::add<F>(t0, t2));
-  X3 = lazy::add<F>(t0, t0);
-  t0 = lazy::add<F>(X3, t0);
-  t2 = NINE ? lazy::times9<F>(t2) : lazy::mul<F>(t2, b3);
-  Elem Z3 = lazy::add<F>(t1, t2);
-  t1 = lazy::sub<F>(t1, t2);
-  Y3 = NINE ? lazy::times9<F>(Y3) : lazy::mul<F>(Y3, b3);
-  X3 = lazy::sub<F>(lazy::mul<F>(t3, t1), lazy::mul<F>(t4, Y3));
-  Y3 = lazy::add<F>(lazy::mul<F>(t1, Z3), lazy::mul<F>(Y3, t0));
-  Z3 = lazy::add<F>(lazy::mul<F>(Z3, t4), lazy::mul<F>(t0, t3));
-  Pt out;
-  out.x = lazy::canon<F>(X3);
-  out.y = lazy::canon<F>(Y3);
-  out.z = lazy::canon<F>(Z3);
-  return out;
-}
-
 template <class F>
 __global__ void __launch_bounds__(AU_THREADS, AU_BLOCKS) add_unsafe_kernel(
     const u32* X1, const u32* Y1, const u32* Z1, const u32* X2, const u32* Y2,
     const u32* Z2, u32* X3, u32* Y3, u32* Z3, long long n) {
   INDEX
-  Pt R = add_unsafe_lazy<F>(load_pt(X1, Y1, Z1, n, j),
-                            load_pt(X2, Y2, Z2, n, j));
+  Pt R = add_unsafe<F>(load_pt(X1, Y1, Z1, n, j), load_pt(X2, Y2, Z2, n, j));
   store_pt(X3, Y3, Z3, n, j, R);
 }
 
 template <class F, bool NINE>
-__global__ void __launch_bounds__(PA_THREADS, PA_BLOCKS) proj_add_kernel(
+__global__ void __launch_bounds__(PA_THREADS, NINE ? PA_BLOCKS : 1)
+    proj_add_kernel(
     const u32* X1, const u32* Y1, const u32* Z1, const u32* X2, const u32* Y2,
     const u32* Z2, u32* X3, u32* Y3, u32* Z3, Const256 b3, long long n) {
   INDEX
-  Pt R = proj_add_lazy<F, NINE>(load_pt(X1, Y1, Z1, n, j),
-                                load_pt(X2, Y2, Z2, n, j), from_const(b3));
+  Pt R = proj_add<F, NINE>(load_pt(X1, Y1, Z1, n, j),
+                           load_pt(X2, Y2, Z2, n, j), from_const(b3));
   store_pt(X3, Y3, Z3, n, j, R);
 }
 
@@ -202,6 +143,17 @@ __global__ void __launch_bounds__(DBL_THREADS) proj_dbl_n_kernel(
   const long long jl = j < n ? j : n - 1;
   const Elem b3 = from_const(b3c);
   Elem X = load(X1, n, jl), Y = load(Y1, n, jl), Z = load(Z1, n, jl);
+  // all four lanes of a point, and every point of the warp, take one branch:
+  // a warp that holds a coordinate at or above p runs the exact doublings,
+  // each lane the whole formula for its point
+  if (!__all_sync(0xffffffffu, below_p<F>(Pt{X, Y, Z}))) {
+    const Pt R = exact::proj_dbl<F>(Pt{X, Y, Z}, b3, steps);
+    if (j >= n) return;
+    if (r == 3) store(X3, n, j, R.x);
+    if (r == 0) store(Y3, n, j, R.y);
+    if (r == 1) store(Z3, n, j, R.z);
+    return;
+  }
   for (int s = 0; s < steps; ++s) {
     Elem m1 = lazy::mul<F>(select(r == 3, X, select(r == 2, Z, Y)),
                            select(r == 0 || r == 3, Y, Z));

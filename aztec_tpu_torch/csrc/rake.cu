@@ -58,6 +58,18 @@
 // Dropped: loading entry k + 1's digit and point before step k's
 // arithmetic.  Under the cap it spilled, and it was no faster at the
 // widest width.
+//
+// Inputs: any 16-bit limbs, as the reference takes.  K3 runs two kernels:
+// rake_packed_kernel walks every lane on the lazy formula alone, then
+// rake_packed_exact_kernel reads the top words of each lane's points and,
+// for a lane with a coordinate at or above p, walks it again on the exact
+// formula and overwrites its partials.  (A lane whose points all lie below
+// p keeps a canonical accumulator, so its lazy steps are exact.)  The
+// second kernel reads 8 of the 64 bytes of each entry, ~1% of K3's time at
+// the proof's widths.  The exact formula inlined beside the lazy one in
+// rake_packed_kernel spilled under its register cap and cost it 5%, and
+// so did a flag carried through its loop.  K5 calls group.cuh's entry
+// mixed add, which tests the accumulator and the point at every step.
 #include "group.cuh"
 
 using namespace aztec;
@@ -69,11 +81,20 @@ constexpr u32 SENTINEL = 0x1FFFFu;  // no digit equals it: first step restarts
 // imply, 65536 / (threads x blocks) = 128, leaves no spill
 constexpr int RK_THREADS = 128, RK_BLOCKS = 4;
 
+// the mixed add of a step: group.cuh's entry formula, or one of its forms
+enum Form { ENTRY, LAZY, EXACT };
+
 // One step of a lane: continue the run with (X2, Y2), or restart from it.
-template <class F>
+template <class F, Form FORM>
 __device__ __forceinline__ void rake_step(Pt& acc, u32& prevd, u32 dk,
                                           const Elem& X2, const Elem& Y2) {
-  Pt added = mixed_add_unsafe<F>(acc, X2, Y2);
+  Pt added;
+  if constexpr (FORM == LAZY)
+    added = lazy::mixed_add_unsafe<F>(acc, X2, Y2);
+  else if constexpr (FORM == EXACT)
+    added = exact::mixed_add_unsafe<F>(acc, X2, Y2);
+  else
+    added = mixed_add_unsafe<F>(acc, X2, Y2);
   const bool same = dk == prevd;
   acc.x = select(same, added.x, X2);
   acc.y = select(same, added.y, Y2);
@@ -81,13 +102,12 @@ __device__ __forceinline__ void rake_step(Pt& acc, u32& prevd, u32 dk,
   prevd = dk;
 }
 
-template <class F>
-__global__ void __launch_bounds__(RK_THREADS, RK_BLOCKS) rake_packed_kernel(
+// K3 lane b's K steps with the FORM mixed add
+template <class F, Form FORM>
+__device__ __forceinline__ void rake_packed_lane(
     const u32* __restrict__ dig, const u32* __restrict__ packed,
     u32* __restrict__ ox, u32* __restrict__ oy, u32* __restrict__ oz, int K,
-    long long B) {
-  long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+    long long B, long long b) {
   const long long n = (long long)K * B;
   Pt acc{zero(), zero(), zero()};
   u32 prevd = SENTINEL;
@@ -99,9 +119,38 @@ __global__ void __launch_bounds__(RK_THREADS, RK_BLOCKS) rake_packed_kernel(
       X2.v[i] = packed[(long long)i * n + col];
       Y2.v[i] = packed[(long long)(NL + i) * n + col];
     }
-    rake_step<F>(acc, prevd, dig[col], X2, Y2);
+    rake_step<F, FORM>(acc, prevd, dig[col], X2, Y2);
     store_pt(ox, oy, oz, n, col, acc);
   }
+}
+
+template <class F>
+__global__ void __launch_bounds__(RK_THREADS, RK_BLOCKS) rake_packed_kernel(
+    const u32* __restrict__ dig, const u32* __restrict__ packed,
+    u32* __restrict__ ox, u32* __restrict__ oy, u32* __restrict__ oz, int K,
+    long long B) {
+  long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  rake_packed_lane<F, LAZY>(dig, packed, ox, oy, oz, K, B, b);
+}
+
+// the lanes with a point at or above p (the top words of X and Y, packed
+// rows 7 and 15), again on the exact formula
+template <class F>
+__global__ void rake_packed_exact_kernel(
+    const u32* __restrict__ dig, const u32* __restrict__ packed,
+    u32* __restrict__ ox, u32* __restrict__ oy, u32* __restrict__ oz, int K,
+    long long B) {
+  long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const long long n = (long long)K * B;
+  bool in_range = true;
+  for (int k = 0; k < K; ++k) {
+    const long long col = (long long)k * B + b;
+    in_range &= (packed[(NL - 1) * n + col] < F::P(NL - 1)) &
+                (packed[(2 * NL - 1) * n + col] < F::P(NL - 1));
+  }
+  if (!in_range) rake_packed_lane<F, EXACT>(dig, packed, ox, oy, oz, K, B, b);
 }
 
 template <class F>
@@ -117,7 +166,8 @@ __global__ void rake_kernel(const u32* __restrict__ dig,
   u32 prevd = SENTINEL;
   for (int k = 0; k < K; ++k) {
     const long long col = b * K + k;
-    rake_step<F>(acc, prevd, dig[col], load(px, n, col), load(py, n, col));
+    rake_step<F, ENTRY>(acc, prevd, dig[col], load(px, n, col),
+                        load(py, n, col));
     store_pt(ox, oy, oz, n, col, acc);
   }
 }
@@ -142,14 +192,20 @@ int rk_rake_packed(int field, const u32* dig, const u32* packed, u32* ox,
   unsigned int threads = balanced_threads(B, RK_THREADS);
   unsigned int blocks = (unsigned int)((B + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
-  if (field == 0)
-    rake_packed_kernel<Fr><<<blocks, threads, 0, s>>>(dig, packed, ox, oy, oz,
-                                                      K, B);
-  else if (field == 1)
-    rake_packed_kernel<Fq><<<blocks, threads, 0, s>>>(dig, packed, ox, oy, oz,
-                                                      K, B);
-  else
+#define RAKE_PACKED(F)                                                      \
+  rake_packed_kernel<F><<<blocks, threads, 0, s>>>(dig, packed, ox, oy, oz, \
+                                                   K, B);                   \
+  if (cudaError_t e = cudaGetLastError()) return (int)e;                    \
+  rake_packed_exact_kernel<F><<<blocks_for(B), THREADS, 0, s>>>(            \
+      dig, packed, ox, oy, oz, K, B)
+  if (field == 0) {
+    RAKE_PACKED(Fr);
+  } else if (field == 1) {
+    RAKE_PACKED(Fq);
+  } else {
     return (int)cudaErrorInvalidValue;
+  }
+#undef RAKE_PACKED
   return (int)cudaGetLastError();
 }
 

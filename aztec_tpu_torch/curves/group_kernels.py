@@ -3,8 +3,13 @@
 Port of aztec_tpu/curves/group_pallas.py.  Each wrapper computes with the
 plain formula of ``group.py`` only for CPU tensors; for CUDA tensors it
 launches the kernel (one thread per point, or four for ``proj_dbl_n``, all
-intermediates in registers) or raises.  Launches are counted in ``field_kernels.LAUNCHES`` under the
-names below.
+intermediates in registers) or raises.  Launches are counted in
+``field_kernels.LAUNCHES`` under the names below.
+
+Inputs: any 16-bit limbs, as the reference.  A point whose coordinates lie
+below p runs the kernels' lazily reduced arithmetic; any other runs the
+exact formula (csrc/group.cuh), whose coordinates equal the reference's and
+the plain formula's on every input.
 """
 
 from __future__ import annotations
@@ -24,8 +29,7 @@ def _b3(spec: FieldSpec, b_int: int):
 
 
 def mixed_add_unsafe(P, Qa, spec: FieldSpec):
-    """Jacobian + affine.  Every coordinate must be canonical (below p), as
-    for ``add_unsafe``."""
+    """Jacobian + affine.  Any 16-bit limbs, as the reference."""
     if not fk.use_kernels(P[0]):
         return group.mixed_add_unsafe(P, Qa, spec)
     return tuple(fk.launch("group_ops", "gk_mixed_add", "mixed_add_unsafe",
@@ -33,9 +37,7 @@ def mixed_add_unsafe(P, Qa, spec: FieldSpec):
 
 
 def add_unsafe(P, Q, spec: FieldSpec):
-    """Jacobian + Jacobian.  Every coordinate must be canonical (below p):
-    the kernel's lazy arithmetic takes its inputs as reduced, so on limbs
-    at or above p it leaves the plain formula."""
+    """Jacobian + Jacobian.  Any 16-bit limbs, as the reference."""
     if not fk.use_kernels(P[0]):
         return group.add_unsafe(P, Q, spec)
     return tuple(fk.launch("group_ops", "gk_add_unsafe", "add_unsafe", spec,
@@ -43,8 +45,8 @@ def add_unsafe(P, Q, spec: FieldSpec):
 
 
 def proj_add_complete(P, Q, spec: FieldSpec, b_int: int):
-    """Complete projective add (RCB16 algorithm 7).  Every coordinate must
-    be canonical (below p), as for ``add_unsafe``."""
+    """Complete projective add (RCB16 algorithm 7).  Any 16-bit limbs, as
+    the reference."""
     if not fk.use_kernels(P[0]):
         return group.proj_add_complete(P, Q, spec, b_int)
     b3 = _b3(spec, b_int)
@@ -55,7 +57,7 @@ def proj_add_complete(P, Q, spec: FieldSpec, b_int: int):
 
 def proj_dbl(P, spec: FieldSpec, b_int: int):
     """One complete doubling (RCB16 algorithm 9): ``proj_dbl_n`` with one
-    step."""
+    step.  Any 16-bit limbs, as the reference."""
     if not fk.use_kernels(P[0]):
         return group.proj_dbl(P, spec, b_int)
     b3 = _b3(spec, b_int)
@@ -65,8 +67,8 @@ def proj_dbl(P, spec: FieldSpec, b_int: int):
 
 def proj_dbl_n(P, spec: FieldSpec, b_int: int, steps: int):
     """``steps`` successive complete doublings in one launch, four lanes a
-    point.  Every coordinate must be canonical (below p), as for
-    ``add_unsafe``."""
+    point.  Any 16-bit limbs, as the reference (a warp that holds a
+    coordinate at or above p runs the exact doublings, one lane a point)."""
     if not fk.use_kernels(P[0]):
         return group.proj_dbl_n(P, spec, b_int, steps)
     b3 = _b3(spec, b_int)
@@ -76,6 +78,8 @@ def proj_dbl_n(P, spec: FieldSpec, b_int: int, steps: int):
 
 
 def jacobian_to_proj(P, spec: FieldSpec):
+    """Jacobian -> complete projective.  Any 16-bit limbs, as the
+    reference."""
     if not fk.use_kernels(P[0]):
         return group.jacobian_to_proj(P, spec)
     return tuple(fk.launch("group_ops", "gk_j2c", "jacobian_to_proj", spec, P,
@@ -83,6 +87,8 @@ def jacobian_to_proj(P, spec: FieldSpec):
 
 
 def proj_to_jacobian(P, spec: FieldSpec):
+    """Complete projective -> Jacobian (canonical arithmetic).  Any 16-bit
+    limbs, as the reference."""
     if not fk.use_kernels(P[0]):
         return group.proj_to_jacobian(P, spec)
     return tuple(fk.launch("group_ops", "gk_c2j", "proj_to_jacobian", spec, P,

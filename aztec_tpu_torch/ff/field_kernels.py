@@ -9,9 +9,10 @@ limbs repacked to 8 x 32 bits in registers (``csrc/field.cuh``).
 Dispatch: ``use_kernels(t)`` is true exactly for CUDA tensors.  A wrapper
 computes with the plain PyTorch version (``ff/limb.py``) only because its
 tensors lie on the CPU; for CUDA tensors it launches the kernel or raises.
-Operands that broadcast (the FFT twiddles, 1/n, GLV's beta) are
-materialised with ``expand(...).contiguous()`` before the launch, so every
-kernel sees contiguous (16, N) planes.
+Operands that broadcast (1/n, GLV's beta) are materialised with
+``expand(...).contiguous()`` before the launch, so every elementwise kernel
+sees contiguous (16, N) planes; the FFT's stage kernel (``fft_stages``)
+reads its stage's rows and the root table where they lie.
 
 ``LAUNCHES`` counts kernel launches by name and ``ELEMS`` the elements
 they ran over (lanes, rake entries, buckets); they are the only module
@@ -32,6 +33,11 @@ from .bn254 import FQ_MOD, FR_MOD
 from .spec import FieldSpec
 
 L = 16
+# most FFT stages one launch of the stage kernel runs, and the stages a
+# launch of poly.fft: its 2^s elements a thread stay in registers (four
+# stages spilled at 255 registers); 3 is the fastest at the quotient's 2^19
+# and 13% behind 2 at 2^17 (PERF.md)
+MAX_STAGES = 3
 LAUNCHES: collections.Counter = collections.Counter()
 ELEMS: collections.Counter = collections.Counter()
 
@@ -119,8 +125,55 @@ def mul_add(a, b, c, spec: FieldSpec):
 
 
 def butterfly(top, bot, tw, spec: FieldSpec):
-    """Fused FFT butterfly (top + tw*bot, top - tw*bot), one launch."""
+    """Fused FFT butterfly (top + tw*bot, top - tw*bot), one launch of the
+    FFT stage kernel with one stage."""
     if _on_cpu(top, bot, tw):
         return limb.butterfly(top, bot, tw, spec)
     return tuple(launch("field_ops", "fk_butterfly", "butterfly", spec,
                         (top, bot, tw), 2))
+
+
+def fft_stages_plain(A, roots, t: int, s: int, spec: FieldSpec):
+    """Plain version of ``fft_stages``: s successive Stockham stages, each a
+    ``limb.butterfly`` of the stage's halves and twiddles and the
+    concatenation of its outputs."""
+    n = A.shape[1]
+    for u in range(t, t + s):
+        Lt, r_next = 1 << u, n >> (u + 1)
+        A3 = A.reshape(L, 2 * r_next, Lt)
+        tw = roots[:, :: n // (2 * Lt)][:, None, :Lt]
+        plus, minus = limb.butterfly(A3[:, :r_next], A3[:, r_next:], tw, spec)
+        A = torch.cat([plus, minus], dim=2).reshape(L, n)
+    return A
+
+
+def fft_stages(A, roots, t: int, s: int, spec: FieldSpec):
+    """Stages t .. t + s - 1 (1 <= s <= MAX_STAGES) of the radix-2 Stockham
+    FFT of size n = A.shape[1], in one launch: ``A`` (16, n) holds stage
+    t's rows of 2^t columns, ``roots`` the (16, >= n / 2) table of w_n^k.
+    Returns stage t + s.  Counted under ``butterfly``: the port of the TPU's
+    per-stage butterfly."""
+    n = A.shape[1]
+    if not 1 <= s <= MAX_STAGES or n < 1 << (t + s):
+        raise ValueError(f"fft_stages: stages {t}..{t + s - 1} of size {n}")
+    if _on_cpu(A, roots):
+        return fft_stages_plain(A, roots, t, s, spec)
+    dev = A.device
+    for x in (A, roots):
+        if x.device != dev or x.dtype != torch.int32 or x.dim() != 2 \
+                or x.shape[0] != L:
+            raise ValueError("fft_stages: expected (16, n) int32 planes on "
+                             f"{dev}, got {tuple(x.shape)} {x.dtype} "
+                             f"on {x.device}")
+    if roots.shape[1] < n // 2:
+        raise ValueError(f"fft_stages: {roots.shape[1]} roots for size {n}")
+    A, roots = A.contiguous(), roots.contiguous()
+    out = torch.empty_like(A)
+    rc = native.library("field_ops").fk_fft_stages(
+        field_id(spec), A.data_ptr(), out.data_ptr(), roots.data_ptr(),
+        roots.shape[1], n, 1 << t, s,
+        torch.cuda.current_stream(dev).cuda_stream)
+    native.check(rc, "fk_fft_stages")
+    LAUNCHES["butterfly"] += 1
+    ELEMS["butterfly"] += s * n // 2
+    return out

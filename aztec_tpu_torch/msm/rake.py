@@ -83,8 +83,8 @@ def rake_scan_plain(sd, pts, B: int, K: int, spec: FieldSpec):
 
 
 def rake_scan(sd, pts, B: int, K: int, spec: FieldSpec):
-    """K5 wrapper: plain version for CPU tensors, the kernel for CUDA.
-    Coordinates must be canonical, as for ``rake_scan_packed``."""
+    """K5 wrapper: plain version for CPU tensors, the kernel for CUDA.  Any
+    16-bit limbs, as the reference (see ``rake_scan_packed``)."""
     X, Y = pts
     if not fk.use_kernels(X):
         return rake_scan_plain(sd, pts, B, K, spec)
@@ -113,9 +113,11 @@ def rake_scan(sd, pts, B: int, K: int, spec: FieldSpec):
 
 
 def rake_scan_packed(dig_k, packed_k, B: int, K: int, spec: FieldSpec):
-    """K3 wrapper: plain version for CPU tensors, the kernel for CUDA.  The
-    points' coordinates must be canonical (below p): the kernel's lazy
-    mixed add takes them as reduced."""
+    """K3 wrapper: plain version for CPU tensors, the kernel for CUDA.  Any
+    16-bit limbs, as the reference: the kernel walks every lane on the
+    lazily reduced mixed add, and a second kernel walks again, on the exact
+    formula, the lanes with a point at or above p (one launch in the
+    count)."""
     if not fk.use_kernels(packed_k):
         return rake_scan_packed_plain(dig_k, packed_k, B, K, spec)
     if dig_k.numel() != K * B or tuple(packed_k.shape) != (L, K * B):

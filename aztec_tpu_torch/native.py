@@ -38,6 +38,7 @@ SIGNATURES = {
         "fk_sub_mod": [_I, _P, _P, _P, _LL, _P],
         "fk_butterfly": [_I, _P, _P, _P, _P, _P, _LL, _P],
         "fk_mul_add": [_I, _P, _P, _P, _P, _LL, _P],
+        "fk_fft_stages": [_I, _P, _P, _P, _LL, _LL, _LL, _I, _P],
     },
     "group_ops": {
         "gk_mixed_add": [_I] + [_P] * 8 + [_LL, _P],
@@ -53,7 +54,7 @@ SIGNATURES = {
         "rk_rake": [_I] + [_P] * 6 + [_I, _LL, _P],
     },
     "bucket": {
-        "bk_bucket_phase": [_I] + [_P] * 11 + [_I, _I, _P],
+        "bk_bucket_phase": [_I] + [_P] * 11 + [_I, _I, _I, _P],
     },
     "microbench": {
         "mb_vpu": [_I, _I, _P, _P, _P, _LL, _I, _P],

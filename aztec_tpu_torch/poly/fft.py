@@ -1,14 +1,16 @@
 """Radix-2 FFT / iFFT / coset FFT over Fr, Stockham formulation.
 
-Port of aztec_tpu/poly/fft.py: log2(n) self-sorting stages of static
-slices, each ONE fused butterfly launch (K1 ``butterfly``: top + tw*bot,
-top - tw*bot).  No bit-reversal pass.  Polynomials are Montgomery (16, n)
-limb planes.
+Port of aztec_tpu/poly/fft.py: log2(n) self-sorting stages, each the
+reference's butterfly (top + tw*bot, top - tw*bot) over the stage's halves
+and a strided slice of the root table.  No bit-reversal pass.  Polynomials
+are Montgomery (16, n) limb planes.  On the card the stages run
+``field_kernels.MAX_STAGES`` at a time in one launch of K1's stage kernel
+(``field_kernels.fft_stages``), which reads the stage's rows and twiddles
+where they lie: no copy of the halves, no broadcast twiddle plane and no
+concatenation.
 """
 
 from __future__ import annotations
-
-import torch
 
 from ..ff import FR
 from ..ff import field_kernels as fk
@@ -21,17 +23,13 @@ def _fft_core(x, roots, n: int):
     """Stockham radix-2: A_t has shape (16, r_t, L_t) with r_t = n/2^t and
     A_t[:, b, :] = FFT_{L_t} of x[b::r_t]; the halves of x[b::r_{t+1}] are
     rows b and b + r_{t+1}, twiddled by a strided slice of the root table."""
-    if n == 1:
-        return x
-    A = x.reshape(L, n, 1)
-    for t in range(n.bit_length() - 1):
-        Lt = 1 << t
-        r_next = n >> (t + 1)
-        tw = roots[:, :: n // (2 * Lt)]                   # (16, Lt)
-        plus, minus = fk.butterfly(A[:, :r_next, :], A[:, r_next:, :],
-                                   tw[:, None, :], FR)
-        A = torch.cat([plus, minus], dim=2)
-    return A.reshape(L, n)
+    logn = n.bit_length() - 1
+    A, t = x, 0
+    while t < logn:
+        s = min(fk.MAX_STAGES, logn - t)
+        A = fk.fft_stages(A, roots, t, s, FR)
+        t += s
+    return A
 
 
 def fft(x, domain: EvaluationDomain):

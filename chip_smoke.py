@@ -22,9 +22,15 @@ exits non-zero):
    ``add_unsafe``, ``proj_add_complete`` and ``proj_dbl_n``, K3
    ``rake_scan_packed``) also bit for bit on edge lanes (infinities,
    P = Q, P = -Q, coordinates 0, 1, p - 1; for K3 also runs, restarts and
-   alternating digits) for Fr and Fq, timed at the proof's widths, and
-   every K2 and rake kernel's registers, spill bytes and SASS instructions
-   printed (a redesigned kernel that spills fails the run);
+   alternating digits) for Fr and Fq, timed at the proof's widths (K4 at
+   2^16 and 1,024 buckets, the FFT's stage kernel through ``poly.fft`` at
+   2^17 and 2^19, 1 to 3 stages a launch), and every K1, K2, rake and K4
+   kernel's registers, spill bytes and SASS instructions printed (a
+   redesigned kernel that spills fails the run); every lazily reduced
+   kernel (the K2 adds and doublings, ``jacobian_to_proj``, K3, K5, K4,
+   the FFT's stage kernel) against its plain version on unreduced lanes
+   (uniform 16-bit limbs, all 0xFFFF, p, p + 1, 2p - 1; in a rake also in
+   the middle of runs);
 
 then the paths, each with the launch counts cleared just before it and
 read just after:
@@ -67,7 +73,8 @@ this script.
 
 ``python3 chip_smoke.py --redesigned`` runs phase 2's K1-K3 checks and
 the redesigned kernels' phase alone, then the profiled warm 2^17 proof and
-the ranking.  Copied beside an older checkout's package, it measures that
+the ranking, and last the lazy kernels on unreduced lanes (so an older
+commit prints its times before its kernels fail that check).  Copied beside an older checkout's package, it measures that
 commit's kernels with the same script, on the same card.
 """
 
@@ -157,29 +164,42 @@ RAGGED = 1000
 # The kernels' CUDA function names, as torch.profiler reports them, for the
 # redesign ranking (proj_dbl runs proj_dbl_n_kernel with one step)
 SYMBOLS = {"mont_mul_kernel": "mont_mul", "add_mod_kernel": "add_mod",
-           "sub_mod_kernel": "sub_mod", "butterfly_kernel": "butterfly",
+           "sub_mod_kernel": "sub_mod", "fft_stages_kernel": "butterfly",
            "mul_add_kernel": "mul_add", "mixed_add_kernel": "mixed_add_unsafe",
            "add_unsafe_kernel": "add_unsafe",
            "proj_add_kernel": "proj_add_complete",
            "proj_dbl_n_kernel": "proj_dbl_n", "j2c_kernel": "jacobian_to_proj",
            "c2j_kernel": "proj_to_jacobian",
-           "rake_packed_kernel": "rake_scan_packed", "rake_kernel": "rake_scan",
+           "rake_packed_kernel": "rake_scan_packed",
+           "rake_packed_exact_kernel": "rake_scan_packed",
+           "rake_kernel": "rake_scan",
            "bucket_lanes_kernel": "bucket_phase",
+           "bucket_final_kernel": "bucket_phase",
+           # the kernels of an older commit, for a same-card comparison
+           "butterfly_kernel": "butterfly",
            "bucket_combine_kernel": "bucket_phase"}
 
 # The widths the 2^17 proof launches the redesigned kernels at.  The two
-# K2 adds: the widest barrier (24 rows x 2^16: the tails and the fold), the
-# composed bucket phase of one MSM and of the three-MSM barrier (8 GLV rows
-# x 1024 lanes each), and the Horner fold (one lane per MSM).  K3 (K = 64
+# K2 adds: the widest barrier (24 rows x 2^16: the tails and the fold), 8,
+# 16 and 24 rows x 4096 lanes (a count of the proof's launches by width put
+# 65 of its 69 add_unsafe launches there), the composed bucket phase of one
+# MSM and of the three-MSM barrier (8 GLV rows x 1024 lanes each), and the
+# Horner fold (one lane per MSM).  K3 (K = 64
 # steps a lane): the widest barrier's chunk (24 rows x 4096 lanes) and one
 # MSM's (8 rows).  proj_dbl_n (16 doublings): the fold of one MSM (1 lane:
 # the engine's, the chunked pipeline's Horner fold), of a three-MSM
 # barrier (3), and one eight times wider (24).
 RAKE_K = 64
-REDESIGNED_WIDTHS = {"add_unsafe": (24 << 16, 8192, 24576, 3),
-                     "proj_add_complete": (24 << 16, 8192, 24576, 3),
+K2_ADD_WIDTHS = (24 << 16, 98304, 65536, 32768, 24576, 8192, 3)
+REDESIGNED_WIDTHS = {"add_unsafe": K2_ADD_WIDTHS,
+                     "proj_add_complete": K2_ADD_WIDTHS,
                      "rake_scan_packed": (24 * 4096, 8 * 4096),
-                     "proj_dbl_n": (1, 3, 24)}
+                     "proj_dbl_n": (1, 3, 24),
+                     # K4: the engine's 2^16 buckets (c = 16) and 1,024
+                     "bucket_phase": (1 << 16, 1024),
+                     # the FFT (its stage kernel) at the proof's sizes: n and
+                     # the quotient's 4n
+                     "butterfly": (1 << 17, 1 << 19)}
 # the edge lanes' widths: a partial last block at every block size
 K2_EDGE_WIDTHS = (1, 3, 33, 8192 + 5, 24576)
 DBL_EDGE_WIDTHS, DBL_EDGE_STEPS = (1, 3, 33, 8192 + 5), (1, 16)
@@ -191,7 +211,12 @@ PRODUCTS = {"add_unsafe_kernel": 16, "proj_add_kernel": 12,
             "rake_packed_kernel": 11}
 # kernels of the redesigned phase: a spill fails the run
 REDESIGNED_SYMBOLS = ("add_unsafe_kernel", "proj_add_kernel",
-                      "rake_packed_kernel", "proj_dbl_n_kernel")
+                      "rake_packed_kernel", "proj_dbl_n_kernel",
+                      "fft_stages_kernel")
+# the libraries whose kernels' registers, spills and SASS the redesigned
+# phase prints (K4 calls its formulas out of line: its stack holds the
+# calls' frames, so it is printed and not held to zero)
+REDESIGNED_LIBS = ("group_ops", "rake", "bucket", "field_ops")
 
 # The main path's widest work-queue barrier: the three wire (or the three
 # quotient) commitments of the 2^17 proof run as one batch of MSMs over one
@@ -321,6 +346,146 @@ def check_unreduced(gen, dev, n: int = 1 << 16) -> None:
         f"mul_add, butterfly; Fr and Fq; {n} lanes): max_abs_err=0")
 
 
+def unreduced_lanes(gen, spec, w: int, device, canonical_from=None):
+    """(16, w) planes of uniform 16-bit limbs (most lanes >= p); lanes 0-5
+    all 0xFFFF, p, p + 1, 2p - 1, 1 and 0 (a Z of 0); lanes from
+    ``canonical_from`` on canonical (top limb below p's)."""
+    import numpy as np
+    import torch
+
+    from aztec_tpu_torch.numeric.bigint import ints_to_limbs
+
+    p = spec.modulus
+    x = torch.randint(0, 1 << 16, (16, w), generator=gen, dtype=torch.int32,
+                      device=device)
+    special = torch.as_tensor(ints_to_limbs(
+        [(1 << 256) - 1, p, p + 1, 2 * p - 1, 1, 0]).astype(np.int32),
+        device=device)
+    k = min(w, special.shape[1])
+    x[:, :k] = special[:, :k]
+    if canonical_from is not None:
+        x[15, canonical_from:] %= p >> 240
+    return x
+
+
+def rake_unreduced_case(gen, B: int, K: int, spec, device):
+    """K3's inputs (digits (K, B), packed points (16, K * B), K-major):
+    sorted random digits, one run of all K digits on every 4th lane, the
+    points canonical but for unreduced ones in the middle of the runs
+    (entries 1 and 2 of every other lane, every entry of lane 1)."""
+    import torch
+
+    from aztec_tpu_torch.curves.group_ops import JacobianOps
+    from aztec_tpu_torch.curves.spec import BN254_G1, GRUMPKIN_G1
+    from aztec_tpu_torch.ff import FQ
+
+    X, Y = (unreduced_lanes(gen, spec, K * B, device).reshape(16, K, B)
+            for _ in range(2))
+    k = torch.arange(K, device=device)[:, None].expand(K, B)
+    lane = torch.arange(B, device=device)[None, :].expand(K, B)
+    dig = torch.where(lane % 4 == 0, 3, torch.sort(torch.randint(
+        0, 3, (K, B), generator=gen, device=device), dim=0).values)
+    keep = ((lane % 2 == 1) & ((k == 1) | (k == 2))) | (lane == 1)
+    for c in (X, Y):
+        c[15] = torch.where(keep, c[15], c[15] % (spec.modulus >> 240))
+    curve = BN254_G1 if spec is FQ else GRUMPKIN_G1
+    packed = JacobianOps(curve, device).pack_affine(
+        (X.reshape(16, K * B), Y.reshape(16, K * B)))
+    return dig, packed
+
+
+def check_unreduced_lazy(gen, dev) -> list:
+    """Every lazily reduced kernel against its plain version, bit for bit,
+    on unreduced lanes (``unreduced_lanes``; lanes in range and out of it
+    share warps, and whole warps lie in range): the K2 adds, doublings and
+    ``jacobian_to_proj`` at 8,197 points (Fq with b = 3, Fr with Grumpkin's
+    b and with b = 3), K3 at B = 4,101 and K5 at B = 128 with unreduced
+    points in the middle of runs, K4 at 1,024 buckets and one engine
+    round at 2^16, and the FFT's stage kernel at every boundary of
+    a 2^12 FFT, 1 to 3 stages a launch.  The plain versions equal the
+    reference there.  Returns the names of the kernels that differ."""
+    import torch
+
+    from aztec_tpu_torch.curves import group
+    from aztec_tpu_torch.curves import group_kernels as gk
+    from aztec_tpu_torch.curves.spec import BN254_G1, GRUMPKIN_G1
+    from aztec_tpu_torch.ff import FQ, FR
+    from aztec_tpu_torch.ff import field_kernels as fk
+    from aztec_tpu_torch.msm import bucket, rake
+
+    failed = []
+
+    def same(name, got, want):
+        err = max_abs_err(got, want)
+        if err:
+            failed.append(name)
+        log(f"kernel {name} on unreduced lanes: max_abs_err={err}")
+
+    w = 8192 + 5
+    for spec, b in ((FQ, BN254_G1.b), (FR, GRUMPKIN_G1.b), (FR, BN254_G1.b)):
+        P = tuple(unreduced_lanes(gen, spec, w, dev, 64) for _ in range(3))
+        Q = tuple(unreduced_lanes(gen, spec, w, dev, w // 2)
+                  for _ in range(3))
+        tag = f"{spec.name}, " + ("b=3" if b == 3 else "Grumpkin's b")
+        same(f"mixed_add_unsafe ({tag})", gk.mixed_add_unsafe(P, Q[:2], spec),
+             group.mixed_add_unsafe(P, Q[:2], spec))
+        same(f"add_unsafe ({tag})", gk.add_unsafe(P, Q, spec),
+             group.add_unsafe(P, Q, spec))
+        same(f"proj_add_complete ({tag})", gk.proj_add_complete(P, Q, spec, b),
+             group.proj_add_complete(P, Q, spec, b))
+        same(f"proj_dbl ({tag})", gk.proj_dbl(P, spec, b),
+             group.proj_dbl(P, spec, b))
+        Pd = (P[0], P[1].clone(), P[2])
+        Pd[1][15, 64::97] = 0xFFFF     # one unreduced point in some warps
+        same(f"proj_dbl_n ({tag}, {WINDOW} steps)",
+             gk.proj_dbl_n(Pd, spec, b, WINDOW),
+             group.proj_dbl_n(Pd, spec, b, WINDOW))
+        same(f"jacobian_to_proj ({tag})", gk.jacobian_to_proj(P, spec),
+             group.jacobian_to_proj(P, spec))
+    for spec in (FR, FQ):
+        for B, K in ((4096 + 5, 64), (128, 32)):
+            dig, packed = rake_unreduced_case(gen, B, K, spec, dev)
+            same(f"rake_scan_packed ({spec.name}, B={B}, K={K})",
+                 rake.rake_scan_packed(dig, packed, B, K, spec),
+                 rake.rake_scan_packed_plain(dig, packed, B, K, spec))
+            X, Y = rake.unpack(packed)
+            # K5's n-order column b K + k is K3's K-major column k B + b
+            nord = torch.arange(K * B, device=dev).reshape(K, B).T.reshape(-1)
+            sd = dig.T.reshape(-1)
+            pts = (X[:, nord], Y[:, nord])
+            same(f"rake_scan ({spec.name}, B={B}, K={K})",
+                 rake.rake_scan(sd, pts, B, K, spec),
+                 rake.rake_scan_plain(sd, pts, B, K, spec))
+    b = BN254_G1.b
+    plain_ops = bucket.PlainOps(FQ, b, dev)
+    for nb, steps in ((1024, 0), (1 << 16, WINDOW)):
+        bk = tuple(unreduced_lanes(gen, FQ, nb, dev, 4096) for _ in range(3))
+        acc = (tuple(unreduced_lanes(gen, FQ, 1, dev) for _ in range(3))
+               if steps else None)
+        same(f"bucket_phase ({nb} buckets, dbl_steps={steps})",
+             bucket.bucket_phase(bk, nb, FQ, b, acc, steps),
+             bucket.bucket_phase_plain(plain_ops, bk, nb, acc, steps))
+    if not hasattr(fk, "fft_stages"):
+        log("kernel fft_stages: not in this package")
+        return failed
+    n, logn = 1 << 12, 12
+    A0 = unreduced_lanes(gen, FR, n, dev, n // 2)
+    roots = unreduced_lanes(gen, FR, n // 2, dev, 64)
+    for s in range(1, fk.MAX_STAGES + 1):
+        A, t, err = A0, 0, 0
+        while t < logn:
+            st = min(s, logn - t)
+            want = fk.fft_stages_plain(A, roots, t, st, FR)
+            err = max(err, max_abs_err(fk.fft_stages(A, roots, t, st, FR),
+                                       want))
+            A, t = want, t + st
+        name = f"fft_stages ({s} stages a launch, 2^{logn})"
+        log(f"kernel {name} on unreduced lanes: max_abs_err={err}")
+        if err:
+            failed.append(name)
+    return failed
+
+
 def check_kernels(results: dict, rate: float) -> None:
     """Phase 2: each kernel of the 2^17 proof vs its plain version at
     main-path shapes."""
@@ -434,6 +599,27 @@ def check_kernels(results: dict, rate: float) -> None:
            K * B, nbytes=nbytes, iters=3)
 
 
+def k4_operations(nb: int, steps: int):
+    """(Montgomery products, field adds) that K4's function needs at nb
+    buckets with an accumulator and `steps` doublings of it, b = 3: a j2c
+    (3 products) and two complete adds a bucket (the suffix sums: the
+    running sum and the sum of the running sums), then acc' = 2^steps acc
+    + W.  The work of splitting the buckets over lanes (this design's
+    scans, trees and their doublings) is not counted.  A complete add is
+    12 products and 27 adds (9t by additions), a doubling 8 and 13."""
+    adds = 2 * nb + 1
+    return (3 * nb + 12 * adds + 8 * steps, 27 * adds + 13 * steps)
+
+
+def fft_bound_ms(n: int, rate: float):
+    """(least ms, what bounds it) of an n-point FFT: the array read once
+    and written once and the root table (n / 2 elements) read once, or its
+    log2(n) n / 2 products and log2(n) n adds and subs."""
+    logn = n.bit_length() - 1
+    return bound_ms("butterfly", n, rate, nbytes=(2 * n + n // 2) * PLANE_BYTES,
+                    products=(logn * n // 2, logn * n))
+
+
 def check_new_kernels(results: dict, rate: float) -> None:
     """Phase 2, this slice's kernels (K4, K5, K2 proj_dbl, K1 mul_add) vs
     their plain versions at their paths' shapes."""
@@ -462,12 +648,7 @@ def check_new_kernels(results: dict, rate: float) -> None:
     # W), every 16th bucket at infinity
     nb, steps = 1 << WINDOW, WINDOW
     bk, acc = pts(nb), pts(1, zero=False)
-    lanes, groups = bucket.LANES, bucket.GROUPS
-    k2 = nb // lanes
-    adds = 3 * lanes + 4 * groups + 3          # complete adds of the combine
-    dbls = (lanes // groups).bit_length() - 1 + k2.bit_length() - 1 + steps
-    products = (nb * (3 + 2 * 14) + adds * 14 + dbls * 8,
-                nb * 2 * 19 + adds * 19 + dbls * 13)
+    products = k4_operations(nb, steps)
     plain_ops = bucket.PlainOps(FQ, b, dev)
     record_("bucket_phase",
             lambda: bucket.bucket_phase(bk, nb, FQ, b, acc, steps),
@@ -663,12 +844,12 @@ def redesigned_resources() -> dict:
     builds in use): instructions a thread, and those of its largest loop
     (a K3 entry, a doubling of ``proj_dbl_n``); for the redesigned kernels
     of PRODUCTS also the IMAD-class instructions a Montgomery product.  A
-    kernel of REDESIGNED_SYMBOLS that spills raises.  Returns {(kernel,
-    template args): numbers}."""
+    kernel of REDESIGNED_SYMBOLS that spills is listed under "spills".
+    Returns {(kernel, template args): numbers, "spills": [kernel, ...]}."""
     from aztec_tpu_torch.tools import sass
 
-    out = {}
-    for lib in ("group_ops", "rake"):
+    out, spills = {}, []
+    for lib in REDESIGNED_LIBS:
         res, code = sass.resources(lib), sass.kernels(lib)
         for key in sorted(code):
             r, k = res[key], code[key]
@@ -688,24 +869,32 @@ def redesigned_resources() -> dict:
                 + " " + " ".join(f"{op}={v}"
                                  for op, v in k.hist.most_common(6)))
             if key[0] in REDESIGNED_SYMBOLS and row["spill_bytes"]:
-                raise AssertionError(f"{key[0]}{list(key[1])} spills "
-                                     f"{row['spill_bytes']} bytes")
+                spills.append(f"{key[0]}{list(key[1])}")
+    out["spills"] = spills
     return out
 
 
-def time_redesigned() -> dict:
+def time_redesigned(rate: float) -> dict:
     """The redesigned kernels (Fq, BN254 G1) at the proof's widths
-    (REDESIGNED_WIDTHS): device ms, call ms, ns a point (or entry); held
-    against the plain version below 2^16 points (K3 at every width).
-    Returns {name: {width: (ms, call_ms)}}."""
+    (REDESIGNED_WIDTHS): device ms, call ms, ns a point (or entry, or
+    bucket, or FFT element); held against the plain version below 2^16
+    points (K3 at every width).  K4 runs one round of the engine
+    (acc' = 2^16 acc + W).  The FFT is ``poly.fft`` and, where the package
+    has the stage kernel, ``fk.fft_stages`` chained at each of 1 to 3
+    stages a launch (width key "<n> s=<s>"), all held against its plain
+    version.  K4 and the FFT also get their bound at each width
+    (``k4_operations``, ``fft_bound_ms``).  Returns {name: {width: (ms,
+    call_ms, bound_ms or None)}}."""
     import torch
 
     from aztec_tpu_torch.curves import group
     from aztec_tpu_torch.curves import group_kernels as gk
     from aztec_tpu_torch.curves.group_ops import JacobianOps
     from aztec_tpu_torch.curves.spec import BN254_G1
-    from aztec_tpu_torch.ff import FQ
-    from aztec_tpu_torch.msm import rake
+    from aztec_tpu_torch.ff import FQ, FR
+    from aztec_tpu_torch.ff import field_kernels as fk
+    from aztec_tpu_torch.msm import bucket, rake
+    from aztec_tpu_torch.poly import EvaluationDomain, fft_ops
     from aztec_tpu_torch.tools import timing
 
     gen = torch.Generator(device="cuda")
@@ -722,35 +911,75 @@ def time_redesigned() -> dict:
         Xa, Ya = (random_field(gen, (RAKE_K * B,), "cuda") for _ in range(2))
         return dig, JacobianOps(BN254_G1, "cuda").pack_affine((Xa, Ya))
 
+    def fft_calls(n):
+        dom = EvaluationDomain(n, "cuda")
+        x = random_field(gen, (n,), "cuda")
+        staged = hasattr(fk, "fft_stages")
+        want, logn = None, n.bit_length() - 1
+        if staged:              # the plain version: every stage in turn
+            want, t = x, 0
+            while t < logn:
+                want = fk.fft_stages_plain(want, dom.forward_roots, t, 1, FR)
+                t += 1
+        yield n, (lambda: fft_ops.fft(x, dom)), (lambda: want), n
+        for st in range(1, fk.MAX_STAGES + 1) if staged else ():
+            def kern(st=st):
+                A, t = x, 0
+                while t < logn:
+                    s = min(st, logn - t)
+                    A, t = fk.fft_stages(A, dom.forward_roots, t, s, FR), t + s
+                return A
+            yield f"{n} s={st}", kern, (lambda: want), n
+
     def calls(name, w):
+        if name == "bucket_phase":
+            bk, acc = pts(w), pts(1)
+            plain_ops = bucket.PlainOps(FQ, b, "cuda")
+            return [(w, lambda: bucket.bucket_phase(bk, w, FQ, b, acc, WINDOW),
+                     lambda: bucket.bucket_phase_plain(plain_ops, bk, w, acc,
+                                                       WINDOW), w)]
+        if name == "butterfly":
+            return list(fft_calls(w))
         if name == "rake_scan_packed":
             dig, packed = rake_args(w)
-            return (lambda: rake.rake_scan_packed(dig, packed, w, RAKE_K, FQ),
-                    lambda: rake.rake_scan_packed_plain(dig, packed, w,
-                                                        RAKE_K, FQ), w * RAKE_K)
+            return [(w, lambda: rake.rake_scan_packed(dig, packed, w, RAKE_K,
+                                                      FQ),
+                     lambda: rake.rake_scan_packed_plain(dig, packed, w,
+                                                         RAKE_K, FQ),
+                     w * RAKE_K)]
         P = pts(w)
         if name == "proj_dbl_n":
-            return (lambda: gk.proj_dbl_n(P, FQ, b, WINDOW),
-                    lambda: group.proj_dbl_n(P, FQ, b, WINDOW), w)
+            return [(w, lambda: gk.proj_dbl_n(P, FQ, b, WINDOW),
+                     lambda: group.proj_dbl_n(P, FQ, b, WINDOW), w)]
         Q = pts(w)
         extra = (b,) if name == "proj_add_complete" else ()
-        return (lambda: getattr(gk, name)(P, Q, FQ, *extra),
-                lambda: getattr(group, name)(P, Q, FQ, *extra), w)
+        return [(w, lambda: getattr(gk, name)(P, Q, FQ, *extra),
+                 lambda: getattr(group, name)(P, Q, FQ, *extra), w)]
 
     out = {name: {} for name in REDESIGNED_WIDTHS}
     for name, widths in REDESIGNED_WIDTHS.items():
         for w in widths:
-            kern, plain, elems = calls(name, w)
-            ms = timing.device_ms(kern)
-            cms, got = timing.call_ms(kern)
-            if ((w < 1 << 16 or name == "rake_scan_packed")
-                    and max_abs_err(got, plain())):
-                raise AssertionError(f"{name} differs at width {w}")
-            out[name][w] = (ms, cms)
-            log(f"redesigned time {name} width={w}: ms={ms:.5f} "
-                f"call_ms={cms:.5f} ns_per_elem={ms * 1e6 / elems:.3f}")
-            del kern, plain
-            torch.cuda.empty_cache()
+            for key, kern, plain, elems in calls(name, w):
+                ms = timing.device_ms(kern)
+                cms, got = timing.call_ms(kern)
+                if (w < 1 << 16 or name in ("rake_scan_packed", "butterfly")):
+                    want = plain()
+                    if want is not None and max_abs_err(got, want):
+                        raise AssertionError(f"{name} differs at width {key}")
+                bnd = None
+                if name == "butterfly":
+                    bnd = fft_bound_ms(w, rate)
+                elif name == "bucket_phase":
+                    bnd = bound_ms(name, w, rate, nbytes=(3 * w + 6)
+                                   * PLANE_BYTES,
+                                   products=k4_operations(w, WINDOW))
+                out[name][key] = (ms, cms, bnd and bnd[0])
+                log(f"redesigned time {name} width={key}: ms={ms:.5f} "
+                    f"call_ms={cms:.5f} ns_per_elem={ms * 1e6 / elems:.3f}"
+                    + (f" bound_ms={bnd[0]:.5f} ({bnd[1]}) x_bound="
+                       f"{ms / bnd[0]:.2f}" if bnd else ""))
+                del kern, plain
+                torch.cuda.empty_cache()
     return out
 
 
@@ -1089,6 +1318,12 @@ def profile_proof(c):
         f"kernel_device_ms={busy_ms:.1f} launches={sum(r[2] for r in rows)}")
     for dev_us, key, count in rows[:10]:
         log(f"profile   {dev_us / 1e3:9.2f} ms  x{count:<6d} {key[:70]}")
+    # the glue the FFT's stage kernel removes: torch.cat's kernels and the
+    # copies of .contiguous() / .expand(...).contiguous()
+    for label, pat in (("cat", "CatArrayBatchedCopy"), ("copy", "copy_kernel")):
+        hit = [r for r in rows if pat in r[1]]
+        log(f"profile glue {label}: {sum(r[2] for r in hit)} launches, "
+            f"{sum(r[0] for r in hit) / 1e3:.3f} ms")
     by_name = {}
     for dev_us, key, _ in rows:
         m = re.search(r"::(\w+)<", key)
@@ -1238,9 +1473,9 @@ def compare_msm_paths(c, reps: int = 10, device: str = "cuda") -> None:
 def run(argv=()) -> int:
     """The smoke; with ``--redesigned``, only phase 2's checks of K1-K3 and
     the redesigned kernels' phase (registers, spills, SASS, edge lanes, the
-    proof's widths), then the profiled warm 2^17 proof and its ranking: run
-    beside another commit's package, it compares that commit's kernels on
-    the same card."""
+    proof's widths), then the profiled warm 2^17 proof and its ranking, and
+    last the lazy kernels on unreduced lanes: run beside another commit's
+    package, it compares that commit's kernels on the same card."""
     redesigned_only = "--redesigned" in argv
     try:
         import torch
@@ -1274,9 +1509,15 @@ def run(argv=()) -> int:
     results = {}
     check_kernels(results, rate)
     check_redesigned_edges()
-    redesigned = {"resources": {repr(k): v for k, v in
-                                redesigned_resources().items()},
-                  "times": time_redesigned()}
+    resources = redesigned_resources()
+    spills = resources.pop("spills")
+    redesigned = {"resources": {repr(k): v for k, v in resources.items()},
+                  "times": time_redesigned(rate)}
+    # after the times, so that a spilling build still prints them
+    if spills:
+        raise AssertionError(f"{spills} spill")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
     if redesigned_only:
         _, per_proof, cost = main_path()
         redesign_ranking(results, cost)
@@ -1284,8 +1525,18 @@ def run(argv=()) -> int:
                         "launches_per_2pow17_proof": per_proof,
                         "profiled_2pow17_ms": {k: v[2] for k, v in
                                                cost.items()}}))
+        # last, so that an older commit's kernels print their times first
+        failed = check_unreduced_lazy(gen, "cuda")
+        if failed:
+            log(f"kernels that differ from their plain versions on "
+                f"unreduced lanes: {failed}")
+            return 1
         log(card)
         return 0
+    failed = check_unreduced_lazy(gen, "cuda")
+    if failed:
+        raise AssertionError(f"on unreduced lanes, {failed} differ from "
+                             "their plain versions")
     check_new_kernels(results, rate)
     check_microbench(results)
 
@@ -1334,8 +1585,11 @@ def run(argv=()) -> int:
                 per_proof.get(name, 0),
         })
         if name in redesigned["times"]:
-            kernels[-1]["ms_at_widths"] = {w: t[0] for w, t in
-                                           redesigned["times"][name].items()}
+            times = redesigned["times"][name].items()
+            kernels[-1]["ms_at_widths"] = {w: t[0] for w, t in times}
+            if any(t[2] for _, t in times):
+                kernels[-1]["bound_ms_at_widths"] = {w: t[2] for w, t in
+                                                     times}
     missing = [k["name"] for k in kernels
                if k["launches"] == 0 and k["name"] not in NO_PATH]
     log(json.dumps({"kernels": kernels}))
