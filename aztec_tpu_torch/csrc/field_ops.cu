@@ -5,7 +5,9 @@
 // its four main-path formulas: `mont_mul`, `add_mod`, `sub_mod` and the
 // fused Stockham `butterfly` (top + tw*bot, top - tw*bot), and for the fused
 // `mul_add` (a*b + c, pallas_field.py:359-371), which no path of either
-// package calls yet.
+// package calls yet.  `mont_pow` runs the whole square-and-multiply ladder
+// of a power (every Fermat inversion of the prover and of to_affine) in one
+// launch, where the reference scans `mont_mul` (aztec_tpu/ff/limb.py:248).
 //
 // One thread per element; the element's limbs live in registers.  What
 // bounds it on an H100: a mont_mul moves 3 x 64 bytes per element (two
@@ -149,6 +151,59 @@ int fft_stages(int s, const u32* in, u32* out, const u32* tw, long long tw_n,
   return (int)cudaGetLastError();
 }
 
+// a^e in Montgomery form, the square-and-multiply ladder of limb.mont_pow
+// (aztec_tpu/ff/limb.py:248 `mont_pow`, a lax.scan of mont_mul) in one
+// launch: e = sum of bit i of the words `ew` (LSB first) for i < nbits,
+// bit nbits - 1 its highest set bit (nbits = 0: e = 0, the result one).
+// Result = one; for each bit i, result *= base where the bit is set, then
+// base = base^2 unless i is the last.  The exponent is the same for every
+// lane, so every branch on its bits is uniform across the warp; the words
+// shift right one bit a step, so no register array is indexed at run time.
+//
+// A lane below p (its top word below p's, so every intermediate is a field
+// element and a^e mod p is unique) runs the lazy carry-chain products of
+// field_lazy.cuh, values in [0, 2p), and reduces once at the end; a lane at
+// or above p runs field.cuh's canonical mul<F>, K1 mont_mul's own product,
+// in exactly the ladder's order, which gives the reference's limbs on any
+// 16-bit input.  0 maps to 0 on both.
+//
+// What bounds it: at the proof's inversions (width 1 to 3) the latency of
+// one chain of ~380 dependent products (the lazy product's carry chain
+// issues in order); at 2^19 lanes the products' multiply-adds.
+//
+// pow_ladder is the ladder on one lane: LAZY the carry-chain products on
+// values in [0, 2p), reduced at the end, otherwise the canonical mul<F>.
+template <class F, bool LAZY>
+__device__ __forceinline__ Elem pow_ladder(Elem base, const Const256& ew,
+                                           int nbits) {
+  u32 e[NL];
+#pragma unroll
+  for (int w = 0; w < NL; ++w) e[w] = ew.v[w];
+  Elem result = one_mont<F>();
+  for (int i = 0; i < nbits; ++i) {
+    if (e[0] & 1u)
+      result = LAZY ? lazy::mul<F>(result, base) : mul<F>(result, base);
+    if (i + 1 < nbits) base = LAZY ? lazy::sqr<F>(base) : sqr<F>(base);
+#pragma unroll
+    for (int w = 0; w < NL - 1; ++w)
+      e[w] = __funnelshift_r(e[w], e[w + 1], 1);
+    e[NL - 1] >>= 1;
+  }
+  return LAZY ? lazy::canon<F>(result) : result;
+}
+
+template <class F>
+__global__ void mont_pow_kernel(const u32* __restrict__ a,
+                                u32* __restrict__ out, Const256 ew,
+                                int nbits, long long n) {
+  long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const Elem x = load(a, n, j);
+  store(out, n, j, x.v[NL - 1] < F::P(NL - 1)
+                       ? pow_ladder<F, true>(x, ew, nbits)
+                       : pow_ladder<F, false>(x, ew, nbits));
+}
+
 template <class F>
 __global__ void mul_add_kernel(const u32* __restrict__ a,
                                const u32* __restrict__ b,
@@ -221,6 +276,17 @@ int fk_fft_stages(int field, const u32* in, u32* out, const u32* tw,
   if (field == 0) return fft_stages<Fr>(s, in, out, tw, tw_n, n, L, st);
   if (field == 1) return fft_stages<Fq>(s, in, out, tw, tw_n, n, L, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// a^e over (16, n) planes: exp_words the 8 host words of e, LSB first,
+// nbits its bit length (0 <= nbits <= 256)
+int fk_mont_pow(int field, const u32* a, u32* out, const u32* exp_words,
+                int nbits, long long n, void* stream) {
+  if (nbits < 0 || nbits > 32 * NL) return (int)cudaErrorInvalidValue;
+  Const256 e;
+  for (int i = 0; i < NL; ++i) e.v[i] = exp_words[i];
+  DISPATCH(field, mont_pow_kernel, a, out, e, nbits, n);
+  return (int)cudaGetLastError();
 }
 
 int fk_mul_add(int field, const u32* a, const u32* b, const u32* c, u32* out,

@@ -62,6 +62,18 @@ __device__ __forceinline__ bool below_p(const Pt& P) {
   return below_p<F>(P.x) & below_p<F>(P.y) & below_p<F>(P.z);
 }
 
+// an element from lane `src` of this thread's group of LANES lanes, for a
+// formula split over the LANES lanes of a point (every lane of the warp
+// takes part)
+template <int LANES>
+__device__ __forceinline__ Elem shfl(const Elem& a, int src) {
+  Elem r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i)
+    r.v[i] = __shfl_sync(0xffffffffu, a.v[i], src, LANES);
+  return r;
+}
+
 namespace exact {
 
 // Jacobian + affine, 7M + 4S (group_pallas.py `_f_mixed_add_unsafe`); the

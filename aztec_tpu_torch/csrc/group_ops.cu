@@ -118,15 +118,6 @@ __global__ void __launch_bounds__(PA_THREADS, NINE ? PA_BLOCKS : 1)
   store_pt(X3, Y3, Z3, n, j, R);
 }
 
-// an element from lane `src` of this thread's group of DBL_LANES lanes
-__device__ __forceinline__ Elem shfl(const Elem& a, int src) {
-  Elem r;
-#pragma unroll
-  for (int i = 0; i < NL; ++i)
-    r.v[i] = __shfl_sync(0xffffffffu, a.v[i], src, DBL_LANES);
-  return r;
-}
-
 // group.cuh `proj_dbl` split over the DBL_LANES lanes of a point: each
 // level's independent products run on separate lanes (level 1: Y^2, YZ,
 // Z^2, XY; level 2: t2 Z3, t1 Z3, t0 Y3, t0 XY), so a doubling waits on
@@ -157,8 +148,8 @@ __global__ void __launch_bounds__(DBL_THREADS) proj_dbl_n_kernel(
   for (int s = 0; s < steps; ++s) {
     Elem m1 = lazy::mul<F>(select(r == 3, X, select(r == 2, Z, Y)),
                            select(r == 0 || r == 3, Y, Z));
-    const Elem t0 = shfl(m1, 0);  // Y^2; lane 1 holds YZ, lane 3 XY
-    Elem t2 = shfl(m1, 2);        // Z^2
+    const Elem t0 = shfl<DBL_LANES>(m1, 0);  // Y^2; lane 1 YZ, lane 3 XY
+    Elem t2 = shfl<DBL_LANES>(m1, 2);        // Z^2
     t2 = NINE ? lazy::times9<F>(t2) : lazy::mul<F>(t2, b3);
     Elem z3 = lazy::add<F>(t0, t0);  // 8 t0
     z3 = lazy::add<F>(z3, z3);
@@ -167,8 +158,8 @@ __global__ void __launch_bounds__(DBL_THREADS) proj_dbl_n_kernel(
     const Elem t0x = lazy::sub<F>(t0, lazy::add<F>(lazy::add<F>(t2, t2), t2));
     Elem m2 = lazy::mul<F>(select(r == 0, t2, select(r == 1, m1, t0x)),
                            select(r <= 1, z3, select(r == 2, y3, m1)));
-    Y = lazy::add<F>(shfl(m2, 0), shfl(m2, 2));
-    Z = shfl(m2, 1);
+    Y = lazy::add<F>(shfl<DBL_LANES>(m2, 0), shfl<DBL_LANES>(m2, 2));
+    Z = shfl<DBL_LANES>(m2, 1);
     X = lazy::add<F>(m2, m2);  // lane 3's; only lane 3 reads X
   }
   if (j >= n) return;

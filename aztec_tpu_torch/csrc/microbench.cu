@@ -5,19 +5,22 @@
 // pallas_call at :57): chains of one operation over `rows` independent
 // values per element.  The TPU kernel runs NOPS / rows steps on each of
 // `rows` (8, 128) tiles; here one thread holds an element column's `rows`
-// values in registers and runs the same steps on each.  Its bound is the
-// issue of its compiled loop (the SASS instructions of each trip at 128 per
-// clock per SM): with NOPS = 2048 every element does thousands of
-// operations per 12 bytes moved.  The design gives each thread `rows`
-// independent chains (4 or 16, template parameters, fully unrolled) so
-// that the dependent latency of one chain hides behind the others, and
-// keeps every step executed: the steps run in a loop whose trip count is a
-// kernel argument, the shift amount and the masks are kernel arguments,
-// and an empty asm after each integer step stops the compiler from folding
-// a chain (x + y + y into x + 2y, x * y * y into x * y^2, the idempotent
-// & mask) without changing any output.  ptxas still runs two adds (or two
-// ands) of a chain as one three-operand IADD3 (LOP3): the card's own form
-// of such a chain, which its SASS listing shows.
+// values in registers and runs the same steps on each.  Its bound is its
+// compiled loop: the SASS instructions of each trip at the issue rate of
+// 128 per clock per SM, or those of each class at the class's own rate (64
+// per clock per SM for 32-bit integer add, logic, shift and multiply-add,
+// 128 for fp32 multiply), whichever is longer: with NOPS = 2048 every
+// element does thousands of operations per 12 bytes moved.  The design
+// gives each thread `rows` independent chains (4 or 16, template
+// parameters, fully unrolled) so that the dependent latency of one chain
+// hides behind the others, and keeps every step executed: the steps run in
+// a loop whose trip count is a kernel argument, the shift amount and the
+// masks are kernel arguments, and an empty asm after each integer step
+// stops the compiler from folding a chain (x + y + y into x + 2y,
+// x * y * y into x * y^2, the idempotent & mask) without changing any
+// output.  ptxas still runs two adds (or two ands) of a chain as one
+// three-operand IADD3 (LOP3): the card's own form of such a chain, which
+// its SASS listing shows.
 //
 // mb_dissect replaces `run_kernel(body, nf)` of tools/kernel_dissect.py
 // (its pallas_call at :49) over (16, n) planes of 16-bit limbs of the base

@@ -6,6 +6,10 @@ over (16, 8, 128) tiles in one Pallas kernel (``_elementwise_call``); here
 ``csrc/field_ops.cu`` runs it with one CUDA thread per element, with the
 limbs repacked to 8 x 32 bits in registers (``csrc/field.cuh``).
 
+``mont_pow`` runs the whole square-and-multiply ladder of a power (every
+Fermat inversion of the prover and of ``to_affine``) in one launch, where
+the reference scans ``mont_mul`` (aztec_tpu/ff/limb.py ``mont_pow``).
+
 Dispatch: ``use_kernels(t)`` is true exactly for CUDA tensors.  A wrapper
 computes with the plain PyTorch version (``ff/limb.py``) only because its
 tensors lie on the CPU; for CUDA tensors it launches the kernel or raises.
@@ -25,6 +29,7 @@ import collections
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from .. import native
@@ -122,6 +127,30 @@ def mul_add(a, b, c, spec: FieldSpec):
     if _on_cpu(a, b, c):
         return limb.mul_add(a, b, c, spec)
     return launch("field_ops", "fk_mul_add", "mul_add", spec, (a, b, c), 1)[0]
+
+
+def exp_words(exp_bits):
+    """LSB-first exponent bits -> (8 host words of e, LSB first, its bit
+    length); raises past 256 bits."""
+    bits = [int(b) & 1 for b in np.asarray(exp_bits).reshape(-1)]
+    nbits = max((i + 1 for i, b in enumerate(bits) if b), default=0)
+    if nbits > 32 * 8:
+        raise ValueError(f"mont_pow: a {nbits}-bit exponent; at most 256")
+    words = [0] * 8
+    for i in range(nbits):
+        words[i // 32] |= bits[i] << (i % 32)
+    return (ctypes.c_uint32 * 8)(*words), nbits
+
+
+def mont_pow(a, exp_bits, spec: FieldSpec):
+    """a^e in Montgomery form, e given as LSB-first bits (host constants):
+    the whole square-and-multiply ladder of ``limb.mont_pow_plain`` in one
+    launch of ``fk_mont_pow``; bit-identical to it on any 16-bit limbs."""
+    if _on_cpu(a):
+        return limb.mont_pow_plain(a, exp_bits, spec)
+    words, nbits = exp_words(exp_bits)
+    return launch("field_ops", "fk_mont_pow", "mont_pow", spec, (a,), 1,
+                  (words, nbits))[0]
 
 
 def butterfly(top, bot, tw, spec: FieldSpec):

@@ -292,20 +292,27 @@ def select(mask, a, b):
     return torch.where(mask[None], a, b)
 
 
-def mont_pow(a, exp_bits, spec: FieldSpec):
-    """a^e with e given as LSB-first bits (host constants): square and
-    multiply, skipping the multiplies of zero bits."""
-    fk = _fk()
+def mont_pow_plain(a, exp_bits, spec: FieldSpec):
+    """Plain version of ``field_kernels.mont_pow``: a^e with e given as
+    LSB-first bits (host constants), square and multiply through
+    ``mont_mul``, skipping the multiplies of zero bits (the reference's
+    ``lax.scan`` selects them away)."""
     bits = [int(b) for b in np.asarray(exp_bits).reshape(-1)]
     result = one_mont(spec, a.shape[1:], a.device).contiguous()
     base = a
     last = max((i for i, b in enumerate(bits) if b), default=-1)
     for i in range(last + 1):
         if bits[i]:
-            result = fk.mont_mul(result, base, spec)
+            result = mont_mul(result, base, spec)
         if i < last:
-            base = fk.mont_mul(base, base, spec)
+            base = mont_mul(base, base, spec)
     return result
+
+
+def mont_pow(a, exp_bits, spec: FieldSpec):
+    """a^e with e given as LSB-first bits (host constants): one launch of
+    the K1 ladder on the card, ``mont_pow_plain`` on the CPU."""
+    return _fk().mont_pow(a, exp_bits, spec)
 
 
 def inv_mont(a, spec: FieldSpec):

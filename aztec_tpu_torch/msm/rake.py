@@ -84,7 +84,10 @@ def rake_scan_plain(sd, pts, B: int, K: int, spec: FieldSpec):
 
 def rake_scan(sd, pts, B: int, K: int, spec: FieldSpec):
     """K5 wrapper: plain version for CPU tensors, the kernel for CUDA.  Any
-    16-bit limbs, as the reference (see ``rake_scan_packed``)."""
+    16-bit limbs, as the reference: the kernel walks every lane on the
+    lazily reduced mixed add, four threads a lane, and flags the lanes with
+    a point at or above p, which a second kernel walks again on the exact
+    formula (one launch in the count)."""
     X, Y = pts
     if not fk.use_kernels(X):
         return rake_scan_plain(sd, pts, B, K, spec)
@@ -101,11 +104,13 @@ def rake_scan(sd, pts, B: int, K: int, spec: FieldSpec):
     px, py = X.contiguous(), Y.contiguous()
     outs = [torch.empty((L, B, K), dtype=torch.int32, device=X.device)
             for _ in range(3)]
+    flags = torch.empty(B, dtype=torch.int32, device=X.device)
     if n:
         stream = torch.cuda.current_stream(X.device).cuda_stream
         rc = native.library("rake").rk_rake(
             fk.field_id(spec), dig.data_ptr(), px.data_ptr(), py.data_ptr(),
-            *[o.data_ptr() for o in outs], int(K), int(B), stream)
+            *[o.data_ptr() for o in outs], flags.data_ptr(), int(K), int(B),
+            stream)
         native.check(rc, "rk_rake")
         fk.LAUNCHES["rake_scan"] += 1
         fk.ELEMS["rake_scan"] += n

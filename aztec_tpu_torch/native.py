@@ -38,6 +38,7 @@ SIGNATURES = {
         "fk_sub_mod": [_I, _P, _P, _P, _LL, _P],
         "fk_butterfly": [_I, _P, _P, _P, _P, _P, _LL, _P],
         "fk_mul_add": [_I, _P, _P, _P, _P, _LL, _P],
+        "fk_mont_pow": [_I, _P, _P, _P, _I, _LL, _P],
         "fk_fft_stages": [_I, _P, _P, _P, _LL, _LL, _LL, _I, _P],
     },
     "group_ops": {
@@ -51,7 +52,7 @@ SIGNATURES = {
     },
     "rake": {
         "rk_rake_packed": [_I, _P, _P, _P, _P, _P, _I, _LL, _P],
-        "rk_rake": [_I] + [_P] * 6 + [_I, _LL, _P],
+        "rk_rake": [_I] + [_P] * 7 + [_I, _LL, _P],
     },
     "bucket": {
         "bk_bucket_phase": [_I] + [_P] * 11 + [_I, _I, _I, _P],

@@ -117,14 +117,23 @@ def dissect(body: str, a, b):
                   b, a[0].numel())
 
 
+def dissect_bound(kern: sass.Kernel, n: int):
+    """(least ms, what bounds it) of one body over n elements from its
+    compiled code ``kern`` (one element a thread, no loop): the 192 bytes
+    an element moves, its instructions at the SM's issue rate, or its
+    instructions of each class at that class's rate, whichever is
+    longest."""
+    return timing.bound(3 * L * 4 * n, max(timing.issue_ms(n * kern.count),
+                                           timing.class_ms(kern.hist, n)))
+
+
 def run(nf: int = 512, device: str = "cuda", log=print) -> dict:
     """Time every body on the card over nf x 128 elements of uniform 16-bit
     limbs (the TPU tool's inputs), and hold each timed launch's output
     against the plain version on the same inputs, bit for bit.  Returns
     {body: {ms (device), call_ms (CUDA events around wrapper calls),
-    plain_ms, max_abs_err, bound_ms, bound_by}}: the bound is the larger of
-    the 192 bytes an element moves and the compiled body's instructions
-    (``sass``) at the SM's issue rate."""
+    plain_ms, max_abs_err, bound_ms, bound_by}}: the bound is
+    ``dissect_bound`` of the compiled body (``sass``)."""
     dev = torch.device(device)
     if dev.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("kernel_dissect times the card: it needs CUDA")
@@ -153,7 +162,7 @@ def run(nf: int = 512, device: str = "cuda", log=print) -> dict:
         if kern.loop:
             raise RuntimeError(f"dissect_{body} compiled to a loop: its "
                                "instruction count is not one element's")
-        bnd, by = timing.bound(3 * L * 4 * n, timing.issue_ms(n * kern.count))
+        bnd, by = dissect_bound(kern, n)
         results[body] = {"ms": ms, "call_ms": call, "plain_ms": plain_ms,
                          "max_abs_err": err, "bound_ms": bnd, "bound_by": by,
                          "instrs": kern.count}

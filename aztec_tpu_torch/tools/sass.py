@@ -3,10 +3,11 @@ registers and local memory they hold.
 
 ``kernels(lib)`` runs ``cuobjdump -sass`` on a built library of
 ``csrc/`` and returns, for each kernel instantiation, its opcode
-histogram, the instructions of its largest loop and its instruction count.
-The microbenchmarks bound their kernels by these counts at the SM's issue
-rate, so the bound follows whatever the compiler made of each chain; a
-missing listing is an error, not a bound.  ``resources(lib)`` reads
+histogram, the instructions of its largest loop (and their histogram) and
+its instruction count.  The microbenchmarks bound their kernels by these
+counts at the SM's issue rate and at each instruction class's own rate, so
+the bound follows whatever the compiler made of each chain; a missing
+listing is an error, not a bound.  ``resources(lib)`` reads
 ``cuobjdump -res-usage``: registers a thread and the stack and local bytes
 a thread spills to.
 
@@ -40,6 +41,9 @@ class Kernel:
     hist: collections.Counter   # opcode -> count, NOPs included
     loop: int                   # instructions of the largest loop, 0 if none
     count: int                  # instructions, less NOPs and the tail branch
+    # opcode -> count in the largest loop, NOPs excluded
+    loop_hist: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
 
 
 def _key(m: re.Match) -> tuple:
@@ -65,7 +69,7 @@ def parse(text: str) -> dict:
         if key is None:
             return
         addrs = {a: i for i, (a, _, _) in enumerate(instrs)}
-        loop, count = 0, 0
+        loop, count, loop_hist = 0, 0, collections.Counter()
         for i, (addr, op, rest) in enumerate(instrs):
             if op == "NOP":
                 continue
@@ -79,10 +83,12 @@ def parse(text: str) -> dict:
                 continue                      # the tail's BRA to itself
             count += 1
             if target is not None and target < addr and target in addrs:
-                body = instrs[addrs[target]:i + 1]
-                loop = max(loop, sum(o != "NOP" for _, o, _ in body))
+                body = collections.Counter(
+                    o for _, o, _ in instrs[addrs[target]:i + 1] if o != "NOP")
+                if sum(body.values()) > loop:
+                    loop, loop_hist = sum(body.values()), body
         hist = collections.Counter(op for _, op, _ in instrs)
-        out[key] = Kernel(hist, loop, count)
+        out[key] = Kernel(hist, loop, count, loop_hist)
 
     pending = []                              # labels awaiting an address
     for line in text.splitlines():

@@ -25,6 +25,12 @@ HBM_BYTES_PER_S = 3.35e12
 # one warp instruction (32 threads) each (NVIDIA H100 architecture
 # whitepaper).  No pipe mix issues faster.
 ISSUE_PER_CLOCK_PER_SM = 128
+# Results per clock per SM of the SASS instruction classes the
+# microbenchmarks run, on compute capability 9.0 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput): 32-bit integer add (IADD3),
+# logic (LOP3), shift (SHF) and multiply-add (IMAD) 64, fp32 multiply 128.
+CLASS_PER_CLOCK_PER_SM = {"IADD3": 64, "LOP3": 64, "SHF": 64, "IMAD": 64,
+                          "FMUL": 128}
 
 
 def nvidia_smi(query: str) -> str:
@@ -59,6 +65,16 @@ def issue_ms(instructions: float) -> float:
     """Milliseconds the card takes to issue ``instructions`` thread-
     instructions at ISSUE_PER_CLOCK_PER_SM."""
     return instructions / peak_per_s(ISSUE_PER_CLOCK_PER_SM) * 1e3
+
+
+def class_ms(hist, repeats: float) -> float:
+    """Milliseconds the card takes to run ``repeats`` times the
+    instructions of ``hist`` (opcode -> count) at their classes' rates
+    (CLASS_PER_CLOCK_PER_SM): the longest class alone, a lower bound
+    whether or not two classes share a unit."""
+    per_sm_clock = peak_per_s(1)
+    return max((hist.get(op, 0) * repeats / (rate * per_sm_clock) * 1e3
+                for op, rate in CLASS_PER_CLOCK_PER_SM.items()), default=0.0)
 
 
 def call_ms(fn, iters: int = 5):

@@ -127,6 +127,18 @@ def vpu_chain(kind: str, rows: int, a, b, nops: int = NOPS):
                   a[0].numel(), (nops,))
 
 
+def vpu_bound(kern: sass.Kernel, rows: int, ncols: int, steps: int):
+    """(least ms, what bounds it) of one launch over ``ncols`` element
+    columns of ``rows`` chains of ``steps`` steps, from the compiled loop
+    ``kern`` (UNROLL steps a trip): the 12 bytes a chain moves, the loop's
+    instructions at the SM's issue rate, or its instructions of each class
+    at that class's rate, whichever is longest."""
+    trips = ncols * (steps // UNROLL)
+    return timing.bound(3 * 4 * rows * ncols,
+                        max(timing.issue_ms(trips * kern.loop),
+                            timing.class_ms(kern.loop_hist, trips)))
+
+
 def run(nblocks: int = 64, device: str = "cuda", log=print) -> dict:
     """Time every kind at each rows value on the card over nblocks TPU
     tiles' worth of element columns (1024 each), a in [0, 2^16) and b in
@@ -134,9 +146,8 @@ def run(nblocks: int = 64, device: str = "cuda", log=print) -> dict:
     output against the plain version on the same inputs, bit for bit.
     Returns {(rows, kind): {ms (device), call_ms (CUDA events around
     wrapper calls), plain_ms, max_abs_err, bound_ms, bound_by,
-    instrs_per_op, element_ops, ops_per_s, guide_per_s}}.  The bound is the
-    larger of the 12 bytes a chain moves and the compiled loop's
-    instructions (``sass``) at the SM's issue rate."""
+    instrs_per_op, element_ops, ops_per_s, guide_per_s}}.  The bound is
+    ``vpu_bound`` of the compiled loop (``sass``)."""
     dev = torch.device(device)
     if dev.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("vpu_microbench times the card: it needs CUDA")
@@ -170,12 +181,12 @@ def run(nblocks: int = 64, device: str = "cuda", log=print) -> dict:
                                      f"differs from its plain version at "
                                      f"{ncols} columns")
             del out, want
-            loop = compiled[("vpu_kernel", (KINDS.index(kind), rows))].loop
+            kern = compiled[("vpu_kernel", (KINDS.index(kind), rows))]
+            loop = kern.loop
             if not loop:
                 raise RuntimeError(f"no loop in the SASS of vpu_{kind} "
                                    f"rows={rows}")
-            bnd, by = timing.bound(3 * 4 * rows * ncols, timing.issue_ms(
-                ncols * (steps // UNROLL) * loop))
+            bnd, by = vpu_bound(kern, rows, ncols, steps)
             per_clock, instrs = GUIDE[kind]
             guide = per_clock * per_sm_clock / instrs
             rate = ops / (ms * 1e-3)

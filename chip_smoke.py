@@ -14,7 +14,10 @@ exits non-zero):
    bucket phase, the microbenchmarks' ``mb_vpu`` and ``mb_dissect``)
    against its plain PyTorch version on the same inputs at its path's
    shapes, bit-exact; K1 also on unreduced operands (uniform 16-bit limbs,
-   not field elements).  Each path kernel's device time
+   not field elements); K1 ``mont_pow`` (the whole ladder of a power in one
+   launch) also on edge lanes (0, 1, p - 1, p, p + 1, 2p - 1, all 0xFFFF)
+   at widths 1 to 2^16 with the exponents p - 2, 2^100, 0 and 1, and K5
+   on edge lanes with points at or above p.  Each path kernel's device time
    (``tools.timing.device_ms``: 20 calls captured in a CUDA graph, its
    replays between CUDA events, no host time inside), its ``call_ms``
    (CUDA events around wrapper calls, the host's launch cost included) and
@@ -42,7 +45,8 @@ read just after:
    tools/cross_verify_big.py, proved on the card; its 8 verification-key
    commitments must equal artifacts/cross_verify_2pow17_ref_output.log
    (printed by barretenberg's verifier), the proof must verify with the
-   port's verifier and a tampered copy must fail;
+   port's verifier and a tampered copy must fail; the sha256 of a proof
+   under a fixed counter rng is printed, to compare commits' bytes;
 5. warm proofs of that circuit with the port's MSM paths (ragged tail
    mixed-added into the buckets, a barrier's MSMs batched) and the
    reference's (tail padded to a chunk, one MSM at a time), same bytes
@@ -52,7 +56,10 @@ read just after:
    packed branch: K3 and K4 once a round) and through the staged rounds,
    both equal to the golden;
 7. a 2^11-point MSM at the reference's small tier (the engine's unpacked
-   branch: K5 once a round) against the golden;
+   branch: K5 once a round) against the golden; then, outside the path's
+   count, where its time goes: device ms by kernel group and the idle
+   share (torch.profiler), and wall seconds by stage (GLV, rake, carries,
+   bucket phase, doublings, finish, the rest);
 8. the 2^20-point dev SRS from ``fixed_base_mul`` (K2 ``proj_dbl``)
    against the committed table, bit for bit;
 9. the chain circuit at 2^20 gates, whose SRS of 2^20 + 1 points comes
@@ -63,23 +70,27 @@ read just after:
     second beside the programming guide's rate, and every
     ``kernel_dissect`` body over 2^22 elements, on device time, each timed
     launch's output held against its plain version;
-11. the redesign ranking (each kernel's device ms in the profiled warm
-    2^17 proof less the bound of the elements it ran over), a JSON line
-    with every kernel's launches summed over the paths, times and bound,
-    then the card's name and power limit, then the result line.
+11. the redesign rankings (each kernel's device ms in the profiled warm
+    2^17 proof less the bound of the elements it ran over; each kernel's
+    launches over the paths times its device ms less its bound), a JSON
+    line with every kernel's launches summed over the paths, times and
+    bound, then the card's name and power limit, then the result line.
 
 Exits 2 without a result when CUDA is missing or the package is not beside
 this script.
 
 ``python3 chip_smoke.py --redesigned`` runs phase 2's K1-K3 checks and
-the redesigned kernels' phase alone, then the profiled warm 2^17 proof and
-the ranking, and last the lazy kernels on unreduced lanes (so an older
+the redesigned kernels' phase alone (their edge lanes and their times at
+the proof's widths; ``mont_pow`` beside the launch chain it replaces, K5
+at the small tier's width and wider), then the profiled warm 2^17 proof
+and the ranking, and last the lazy kernels on unreduced lanes (so an older
 commit prints its times before its kernels fail that check).  Copied beside an older checkout's package, it measures that
 commit's kernels with the same script, on the same card.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import random
@@ -142,6 +153,10 @@ KERNELS = {
                  (8, 9 + 4)),
     "mul_add": ("field_ops.cu", "aztec_tpu/ff/pallas_field.py:369", 3, 1,
                 (1, 1)),
+    # the products depend on the exponent: counted where it is timed
+    "mont_pow": ("field_ops.cu", "aztec_tpu/ff/pallas_field.py:326 "
+                 "(mont_mul), aztec_tpu/ff/limb.py:248 (mont_pow)", 1, 1,
+                 (0, 0)),
     # the microbenchmarks: their tools compute their bounds
     **{f"vpu_{kind}": ("microbench.cu", "tools/vpu_microbench.py:28", 0, 0,
                        (0, 0))
@@ -172,11 +187,12 @@ SYMBOLS = {"mont_mul_kernel": "mont_mul", "add_mod_kernel": "add_mod",
            "c2j_kernel": "proj_to_jacobian",
            "rake_packed_kernel": "rake_scan_packed",
            "rake_packed_exact_kernel": "rake_scan_packed",
-           "rake_kernel": "rake_scan",
+           "rake_lazy_kernel": "rake_scan", "rake_exact_kernel": "rake_scan",
+           "mont_pow_kernel": "mont_pow",
            "bucket_lanes_kernel": "bucket_phase",
            "bucket_final_kernel": "bucket_phase",
            # the kernels of an older commit, for a same-card comparison
-           "butterfly_kernel": "butterfly",
+           "butterfly_kernel": "butterfly", "rake_kernel": "rake_scan",
            "bucket_combine_kernel": "bucket_phase"}
 
 # The widths the 2^17 proof launches the redesigned kernels at.  The two
@@ -199,20 +215,33 @@ REDESIGNED_WIDTHS = {"add_unsafe": K2_ADD_WIDTHS,
                      "bucket_phase": (1 << 16, 1024),
                      # the FFT (its stage kernel) at the proof's sizes: n and
                      # the quotient's 4n
-                     "butterfly": (1 << 17, 1 << 19)}
+                     "butterfly": (1 << 17, 1 << 19),
+                     # an Fq inversion (p - 2): the proof's (one element a
+                     # barrier), a three-MSM barrier's, the quotient's 4n
+                     "mont_pow": (1, 3, 1 << 19),
+                     # K5 (B lanes, K steps): the small tier's, then wider
+                     "rake_scan": ((128, 32), (1000, 4), (1000, 64),
+                                   (4096 + 5, 4), (4096 + 5, 64))}
 # the edge lanes' widths: a partial last block at every block size
 K2_EDGE_WIDTHS = (1, 3, 33, 8192 + 5, 24576)
 DBL_EDGE_WIDTHS, DBL_EDGE_STEPS = (1, 3, 33, 8192 + 5), (1, 16)
 RAKE_EDGE_B, RAKE_EDGE_K = (1, 33, 128, 4096 + 5), (1, 4, 64)
+K5_EDGE_B, K5_EDGE_K = (1, 127, 128, 1000, 4096 + 5), (1, 4, 32, 64)
+# mont_pow's edge widths, and its exponents beside p - 2: 2^k, 0 and 1
+POW_EDGE_WIDTHS, POW_EDGE_EXPS = (1, 3, 1000, 1 << 16), (1 << 100, 0, 1)
+# exponents 2^64 and 2^192 at width 1: their times' difference over 128
+# is the latency of one lazy product, the chain's step
+POW_LATENCY_EXPS = (1 << 64, 1 << 192)
 # Montgomery products a thread of each redesigned kernel computes a point
 # (rake_packed_kernel: an entry; proj_add computes 3b by two more where its
 # NINE template argument is 0)
 PRODUCTS = {"add_unsafe_kernel": 16, "proj_add_kernel": 12,
-            "rake_packed_kernel": 11}
+            "rake_packed_kernel": 11, "rake_lazy_kernel": 5}
 # kernels of the redesigned phase: a spill fails the run
 REDESIGNED_SYMBOLS = ("add_unsafe_kernel", "proj_add_kernel",
                       "rake_packed_kernel", "proj_dbl_n_kernel",
-                      "fft_stages_kernel")
+                      "fft_stages_kernel", "rake_lazy_kernel",
+                      "mont_pow_kernel")
 # the libraries whose kernels' registers, spills and SASS the redesigned
 # phase prints (K4 calls its formulas out of line: its stack holds the
 # calls' frames, so it is printed and not held to zero)
@@ -325,7 +354,8 @@ def check_unreduced(gen, dev, n: int = 1 << 16) -> None:
     """K1 against its plain versions on unreduced operands, bit for bit:
     both reduce a + b and U / R mod 2^256 before one conditional
     subtraction of p, as the reference does.  The pairs (a, a) and (a, b)
-    put lane 0 at U / R >= 2^256 and lane 1 at a + b = 2^256."""
+    put lane 0 at U / R >= 2^256 and lane 1 at a + b = 2^256.  mont_pow
+    (where the package has it) raises a to p - 2 and to 2^100."""
     from aztec_tpu_torch.ff import FQ, FR, limb
     from aztec_tpu_torch.ff import field_kernels as fk
 
@@ -342,8 +372,91 @@ def check_unreduced(gen, dev, n: int = 1 << 16) -> None:
                     raise AssertionError(f"{name} ({spec.name}) differs from "
                                          "its plain version on unreduced "
                                          "operands")
+        for e in (spec.modulus - 2, 1 << 100) if hasattr(fk, "mont_pow") \
+                else ():
+            if max_abs_err(fk.mont_pow(a, exp_bits(e), spec),
+                           limb.mont_pow_plain(a, exp_bits(e), spec)):
+                raise AssertionError(f"mont_pow ({spec.name}, e = {e:#x}) "
+                                     "differs from its plain version on "
+                                     "unreduced operands")
     log(f"kernel K1 on unreduced operands (mont_mul, add_mod, sub_mod, "
-        f"mul_add, butterfly; Fr and Fq; {n} lanes): max_abs_err=0")
+        f"mul_add, butterfly, mont_pow; Fr and Fq; {n} lanes): "
+        "max_abs_err=0")
+
+
+def exp_bits(e: int) -> list:
+    """e's bits, LSB first (as the ladder takes its exponent)."""
+    return [(e >> i) & 1 for i in range(max(e.bit_length(), 1))]
+
+
+def ladder_products(e: int) -> int:
+    """Montgomery products of the ladder for e: a squaring a bit below the
+    top one and a product a set bit."""
+    return max(e.bit_length() - 1, 0) + bin(e).count("1")
+
+
+def mont_mul_chain(a, bits, spec, one):
+    """The ladder as the port ran it before ``mont_pow``: one K1 mont_mul
+    launch a product (the launch chain ``fk.mont_pow`` replaces); ``one``
+    the Montgomery one at a's shape, made beforehand so that the chain can
+    be captured in a CUDA graph."""
+    from aztec_tpu_torch.ff import field_kernels as fk
+
+    result = one
+    base = a
+    last = max((i for i, b in enumerate(bits) if b), default=-1)
+    for i in range(last + 1):
+        if bits[i]:
+            result = fk.mont_mul(result, base, spec)
+        if i < last:
+            base = fk.mont_mul(base, base, spec)
+    return result
+
+
+def pow_edge_lanes(gen, spec, w: int, device):
+    """(16, w) planes for mont_pow: lanes cycle through 0, 1, p - 1, p,
+    p + 1, 2p - 1, all 0xFFFF, a canonical random element and uniform
+    16-bit limbs (mostly >= p)."""
+    import numpy as np
+    import torch
+
+    from aztec_tpu_torch.numeric.bigint import ints_to_limbs
+
+    p = spec.modulus
+    special = torch.as_tensor(ints_to_limbs(
+        [0, 1, p - 1, p, p + 1, 2 * p - 1, (1 << 256) - 1]).astype(np.int32),
+        device=device)
+    x = torch.randint(0, 1 << 16, (16, w), generator=gen, dtype=torch.int32,
+                      device=device)
+    lane = torch.arange(w, device=device) % (special.shape[1] + 2)
+    x[15] = torch.where(lane == special.shape[1], x[15] % (p >> 240), x[15])
+    pick = lane < special.shape[1]
+    x[:, pick] = special[:, lane[pick]]
+    return x
+
+
+def check_mont_pow_edges(gen, device) -> None:
+    """``fk.mont_pow`` against its plain version, bit for bit, on
+    ``pow_edge_lanes`` at every width of POW_EDGE_WIDTHS, for Fr and Fq,
+    with the exponents p - 2 and POW_EDGE_EXPS (the plain version at the
+    widest width for p - 2 only)."""
+    from aztec_tpu_torch.ff import FQ, FR, limb
+    from aztec_tpu_torch.ff import field_kernels as fk
+
+    for spec in (FR, FQ):
+        for w in POW_EDGE_WIDTHS:
+            x = pow_edge_lanes(gen, spec, w, device)
+            exps = ((spec.modulus - 2,) + POW_EDGE_EXPS
+                    if w < max(POW_EDGE_WIDTHS) else (spec.modulus - 2,))
+            for e in exps:
+                if max_abs_err(fk.mont_pow(x, exp_bits(e), spec),
+                               limb.mont_pow_plain(x, exp_bits(e), spec)):
+                    raise AssertionError(
+                        f"mont_pow ({spec.name}, width {w}, e = {e:#x}) "
+                        "differs from its plain version on the edge lanes")
+    log(f"kernel mont_pow: edge lanes (0, 1, p - 1, p, p + 1, 2p - 1, all "
+        f"0xFFFF, canonical, uniform limbs), Fr and Fq, widths "
+        f"{list(POW_EDGE_WIDTHS)}, e = p - 2, 2^100, 0, 1: max_abs_err=0")
 
 
 def unreduced_lanes(gen, spec, w: int, device, canonical_from=None):
@@ -401,15 +514,16 @@ def check_unreduced_lazy(gen, dev) -> list:
     ``jacobian_to_proj`` at 8,197 points (Fq with b = 3, Fr with Grumpkin's
     b and with b = 3), K3 at B = 4,101 and K5 at B = 128 with unreduced
     points in the middle of runs, K4 at 1,024 buckets and one engine
-    round at 2^16, and the FFT's stage kernel at every boundary of
-    a 2^12 FFT, 1 to 3 stages a launch.  The plain versions equal the
-    reference there.  Returns the names of the kernels that differ."""
+    round at 2^16, the FFT's stage kernel at every boundary of a 2^12 FFT,
+    1 to 3 stages a launch, and K1 mont_pow (Fr and Fq, e = p - 2) at
+    8,197 lanes.  The plain versions equal the reference there.  Returns
+    the names of the kernels that differ."""
     import torch
 
     from aztec_tpu_torch.curves import group
     from aztec_tpu_torch.curves import group_kernels as gk
     from aztec_tpu_torch.curves.spec import BN254_G1, GRUMPKIN_G1
-    from aztec_tpu_torch.ff import FQ, FR
+    from aztec_tpu_torch.ff import FQ, FR, limb
     from aztec_tpu_torch.ff import field_kernels as fk
     from aztec_tpu_torch.msm import bucket, rake
 
@@ -456,6 +570,12 @@ def check_unreduced_lazy(gen, dev) -> list:
             same(f"rake_scan ({spec.name}, B={B}, K={K})",
                  rake.rake_scan(sd, pts, B, K, spec),
                  rake.rake_scan_plain(sd, pts, B, K, spec))
+    for spec in (FR, FQ) if hasattr(fk, "mont_pow") else ():
+        x = unreduced_lanes(gen, spec, w, dev, w // 2)
+        bits = exp_bits(spec.modulus - 2)
+        same(f"mont_pow ({spec.name}, e = p - 2, {w} lanes)",
+             fk.mont_pow(x, bits, spec),
+             limb.mont_pow_plain(x, bits, spec))
     b = BN254_G1.b
     plain_ops = bucket.PlainOps(FQ, b, dev)
     for nb, steps in ((1024, 0), (1 << 16, WINDOW)):
@@ -621,8 +741,8 @@ def fft_bound_ms(n: int, rate: float):
 
 
 def check_new_kernels(results: dict, rate: float) -> None:
-    """Phase 2, this slice's kernels (K4, K5, K2 proj_dbl, K1 mul_add) vs
-    their plain versions at their paths' shapes."""
+    """Phase 2, the later slices' kernels (K4, K5, K2 proj_dbl, K1 mul_add
+    and mont_pow) vs their plain versions at their paths' shapes."""
     import functools
 
     import torch
@@ -698,6 +818,14 @@ def check_new_kernels(results: dict, rate: float) -> None:
     x, y, z = (random_field(gen, (n4,), dev) for _ in range(3))
     record_("mul_add", lambda: fk.mul_add(x, y, z, FR),
             lambda: limb.mul_add(x, y, z, FR), n4)
+
+    # K1 mont_pow at its path's width 1: an Fq inversion (e = p - 2), the
+    # to_affine of a commitment barrier
+    e = FQ.modulus - 2
+    x1 = random_field(gen, (1,), dev)
+    record_("mont_pow", lambda: fk.mont_pow(x1, exp_bits(e), FQ),
+            lambda: limb.mont_pow_plain(x1, exp_bits(e), FQ), 1,
+            products=(ladder_products(e), 0))
 
 
 def edge_points(gen, w: int, spec, device):
@@ -779,15 +907,36 @@ def rake_edge_case(gen, B: int, K: int, spec, device):
     return dig, packed
 
 
+def k5_edge_case(gen, B: int, K: int, spec, device):
+    """K5's inputs (sorted digits (B * K,), points (X, Y) (16, B * K) in
+    n-order): ``rake_edge_case``'s lanes, with the top limb of X set to
+    0xFFFF (a point at or above p) at every 5th lane's middle step, and at
+    every step of lane 2."""
+    import torch
+
+    from aztec_tpu_torch.msm import rake
+
+    dig, packed = rake_edge_case(gen, B, K, spec, device)
+    X, Y = rake.unpack(packed)
+    nord = torch.arange(K * B, device=device).reshape(K, B).T.reshape(-1)
+    X, Y = X[:, nord].contiguous(), Y[:, nord].contiguous()
+    X[15, K // 2::5 * K] = 0xFFFF
+    if B > 2:
+        X[15, 2 * K:3 * K] = 0xFFFF
+    return dig.T.reshape(-1).contiguous(), (X, Y)
+
+
 def check_redesigned_edges(device: str = "cuda") -> None:
     """The redesigned kernels against their plain versions, bit for bit, on
     edge lanes: the two K2 adds on ``edge_points`` at every width of
     K2_EDGE_WIDTHS, ``proj_dbl_n`` on its P at DBL_EDGE_WIDTHS and
     DBL_EDGE_STEPS (BN254 G1, b = 3: 9t by additions, over Fq and Fr, and
     Grumpkin's b = -17 over Fr: the products by 3b), ``mixed_add_unsafe``
-    (which K3 and K5 share) on P and Q's (X, Y), and K3 on
-    ``rake_edge_case`` for every B of RAKE_EDGE_B and K of RAKE_EDGE_K, Fr
-    and Fq."""
+    (which K3 and K5 share) on P and Q's (X, Y), K3 on ``rake_edge_case``
+    for every B of RAKE_EDGE_B and K of RAKE_EDGE_K, K5 on
+    ``k5_edge_case`` for every B of K5_EDGE_B and K of K5_EDGE_K, Fr and
+    Fq, and (where the package has it) K1 mont_pow on its edge lanes
+    (``check_mont_pow_edges``)."""
     import torch
 
     from aztec_tpu_torch.curves import group
@@ -828,6 +977,12 @@ def check_redesigned_edges(device: str = "cuda") -> None:
                      rake.rake_scan_packed(dig, packed, B, K, spec),
                      rake.rake_scan_packed_plain(dig, packed, B, K, spec),
                      f"{spec.name}, B={B}, K={K}")
+        for B in K5_EDGE_B:
+            for K in K5_EDGE_K:
+                sd, pts = k5_edge_case(gen, B, K, spec, device)
+                same("rake_scan", rake.rake_scan(sd, pts, B, K, spec),
+                     rake.rake_scan_plain(sd, pts, B, K, spec),
+                     f"{spec.name}, B={B}, K={K}")
     log(f"kernel add_unsafe, proj_add_complete, mixed_add_unsafe: edge lanes "
         f"(Z1 = 0, Z2 = 0, both, P = Q, P = -Q, identities, coordinates 0, "
         f"1, p - 1), Fr and Fq, b = 3 and Grumpkin's, widths "
@@ -835,7 +990,13 @@ def check_redesigned_edges(device: str = "cuda") -> None:
         f"{list(DBL_EDGE_WIDTHS)}, steps {list(DBL_EDGE_STEPS)}; "
         f"rake_scan_packed (runs, restarts, alternating digits, P = Q and "
         f"P = -Q in a run, coordinates 0, 1, p - 1), Fr and Fq, B in "
-        f"{list(RAKE_EDGE_B)}, K in {list(RAKE_EDGE_K)}: max_abs_err=0")
+        f"{list(RAKE_EDGE_B)}, K in {list(RAKE_EDGE_K)}; rake_scan the same "
+        f"lanes in n-order with points at or above p, B in "
+        f"{list(K5_EDGE_B)}, K in {list(K5_EDGE_K)}: max_abs_err=0")
+    from aztec_tpu_torch.ff import field_kernels as fk
+
+    if hasattr(fk, "mont_pow"):
+        check_mont_pow_edges(gen, device)
 
 
 def redesigned_resources() -> dict:
@@ -883,15 +1044,21 @@ def time_redesigned(rate: float) -> dict:
     has the stage kernel, ``fk.fft_stages`` chained at each of 1 to 3
     stages a launch (width key "<n> s=<s>"), all held against its plain
     version.  K4 and the FFT also get their bound at each width
-    (``k4_operations``, ``fft_bound_ms``).  Returns {name: {width: (ms,
-    call_ms, bound_ms or None)}}."""
+    (``k4_operations``, ``fft_bound_ms``).  K1 ``mont_pow`` (an Fq
+    inversion) runs beside the launch chain it replaces (``mont_mul_chain``,
+    width key "<w> chain"), against which it is held; first, the latency
+    of one of its lazy products at width 1 (``POW_LATENCY_EXPS``), whose
+    multiple by the ladder's length is the chain's floor at widths 1 and
+    3.  K5 runs at the small tier's B = 128, K = 32 and wider.  Returns
+    {name: {width: (ms, call_ms, bound_ms or None)}}, and the latency under
+    "mont_pow_product_latency_ms"."""
     import torch
 
     from aztec_tpu_torch.curves import group
     from aztec_tpu_torch.curves import group_kernels as gk
     from aztec_tpu_torch.curves.group_ops import JacobianOps
     from aztec_tpu_torch.curves.spec import BN254_G1
-    from aztec_tpu_torch.ff import FQ, FR
+    from aztec_tpu_torch.ff import FQ, FR, limb
     from aztec_tpu_torch.ff import field_kernels as fk
     from aztec_tpu_torch.msm import bucket, rake
     from aztec_tpu_torch.poly import EvaluationDomain, fft_ops
@@ -932,6 +1099,25 @@ def time_redesigned(rate: float) -> dict:
             yield f"{n} s={st}", kern, (lambda: want), n
 
     def calls(name, w):
+        if name == "mont_pow":
+            x = random_field(gen, (w,), "cuda")
+            bits = exp_bits(FQ.modulus - 2)
+            one = limb.one_mont(FQ, (w,), "cuda").contiguous()
+            chain = (f"{w} chain", lambda: mont_mul_chain(x, bits, FQ, one),
+                     lambda: None, w)
+            if not hasattr(fk, "mont_pow"):
+                return [chain]
+            return [(w, lambda: fk.mont_pow(x, bits, FQ),
+                     lambda: mont_mul_chain(x, bits, FQ, one), w), chain]
+        if name == "rake_scan":
+            B, K = w
+            sd = torch.sort(torch.randint(0, 16, (B * K,), generator=gen,
+                                          device="cuda")).values
+            X, Y = (random_field(gen, (B * K,), "cuda") for _ in range(2))
+            return [(f"B={B} K={K}",
+                     lambda: rake.rake_scan(sd, (X, Y), B, K, FQ),
+                     lambda: rake.rake_scan_plain(sd, (X, Y), B, K, FQ),
+                     B * K)]
         if name == "bucket_phase":
             bk, acc = pts(w), pts(1)
             plain_ops = bucket.PlainOps(FQ, b, "cuda")
@@ -957,12 +1143,25 @@ def time_redesigned(rate: float) -> dict:
                  lambda: getattr(group, name)(P, Q, FQ, *extra), w)]
 
     out = {name: {} for name in REDESIGNED_WIDTHS}
+    lat = None
+    if hasattr(fk, "mont_pow"):
+        # the chain's step: one lazy product at width 1
+        x1 = random_field(gen, (1,), "cuda")
+        t = [timing.device_ms(lambda e=e: fk.mont_pow(x1, exp_bits(e), FQ))
+             for e in POW_LATENCY_EXPS]
+        lat = (t[1] - t[0]) / (POW_LATENCY_EXPS[1].bit_length()
+                               - POW_LATENCY_EXPS[0].bit_length())
+        out["mont_pow_product_latency_ms"] = lat
+        log(f"redesigned mont_pow: one lazy product's latency at width 1 "
+            f"{lat * 1e3:.4f} us (e = 2^64: {t[0]:.5f} ms, e = 2^192: "
+            f"{t[1]:.5f} ms)")
     for name, widths in REDESIGNED_WIDTHS.items():
         for w in widths:
             for key, kern, plain, elems in calls(name, w):
                 ms = timing.device_ms(kern)
                 cms, got = timing.call_ms(kern)
-                if (w < 1 << 16 or name in ("rake_scan_packed", "butterfly")):
+                if (name in ("rake_scan_packed", "butterfly", "rake_scan",
+                             "mont_pow") or w < 1 << 16):
                     want = plain()
                     if want is not None and max_abs_err(got, want):
                         raise AssertionError(f"{name} differs at width {key}")
@@ -973,6 +1172,16 @@ def time_redesigned(rate: float) -> dict:
                     bnd = bound_ms(name, w, rate, nbytes=(3 * w + 6)
                                    * PLANE_BYTES,
                                    products=k4_operations(w, WINDOW))
+                elif name == "rake_scan":
+                    bnd = bound_ms(name, elems, rate, nbytes=elems * (
+                        4 + 2 * PLANE_BYTES + 3 * PLANE_BYTES))
+                elif name == "mont_pow":
+                    nprod = ladder_products(FQ.modulus - 2)
+                    bnd = bound_ms(name, w, rate, products=(nprod * w, 0))
+                    if lat is not None and w < 1 << 16:
+                        log(f"redesigned mont_pow width={key}: the chain's "
+                            f"floor {nprod} x {lat * 1e3:.4f} us = "
+                            f"{nprod * lat:.5f} ms")
                 out[name][key] = (ms, cms, bnd and bnd[0])
                 log(f"redesigned time {name} width={key}: ms={ms:.5f} "
                     f"call_ms={cms:.5f} ns_per_elem={ms * 1e6 / elems:.3f}"
@@ -1074,6 +1283,19 @@ def microbench_path(results: dict) -> None:
     for (kernel, targs), k in sorted(sass.kernels("microbench").items()):
         log(f"sass {kernel}{list(targs)}: loop={k.loop} count={k.count} "
             + " ".join(f"{op}={v}" for op, v in k.hist.most_common(8)))
+
+
+def path_ranking(kernels: list) -> None:
+    """What each kernel costs over the smoke's paths beyond its bound,
+    largest first: its launches there times (device ms - bound ms) at its
+    recorded width."""
+    rows = sorted(((k["launches"] * (k["ms"] - k["bound_ms"]), k["name"],
+                    k["launches"], k["ms"], k["bound_ms"]) for k in kernels
+                   if k["launches"] and k["ms"] is not None), reverse=True)
+    log("redesign ranking over the smoke's paths (launches x (device ms - "
+        "bound ms)): " + "; ".join(
+            f"{name} {n} x ({ms:.4f} - {b:.4f}) = {score:.2f} ms"
+            for score, name, n, ms, b in rows))
 
 
 def redesign_ranking(results: dict, cost: dict) -> None:
@@ -1235,6 +1457,104 @@ def check_small_tier(log2n: int = 11, device: str = "cuda") -> None:
     log(f"msm engine small tier 2^{log2n}: golden OK")
 
 
+def small_tier_breakdown(log2n: int = 11) -> dict:
+    """Where a warm 2^11 small-tier MSM (phase 7's) goes: its unsynchronised
+    wall; torch.profiler's device milliseconds by kernel group and the
+    device's idle share over a second run; and a third run's wall seconds
+    by stage, each stage's spans synchronised on both sides (so the stages
+    and the rest sum to more than the first wall: the rest is the sort, the
+    bucket fill by gathers and the torch glue between stages).  Its
+    launches are not counted in any path.  Returns the numbers it prints."""
+    import collections
+    import re
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aztec_tpu_torch.curves.group_ops import JacobianOps
+    from aztec_tpu_torch.curves.spec import BN254_G1
+    from aztec_tpu_torch.msm import pippenger
+    from aztec_tpu_torch.msm.pippenger import MSMConfig, msm
+    from aztec_tpu_torch.numeric.bigint import ints_to_limbs
+    from aztec_tpu_torch.srs.reference_string import load_point_table
+
+    n = 1 << log2n
+    X, Y = (torch.as_tensor(p.astype(np.int32), device="cuda")
+            for p in load_point_table(n))
+    rnd = random.Random(SEED + 2)
+    S = torch.as_tensor(ints_to_limbs([rnd.randrange(BN254_G1.order)
+                                       for _ in range(n)]).astype(np.int32),
+                        device="cuda")
+    cfg = MSMConfig(c=4, block=32, bucket_block=4, glv=True)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        msm((X, Y), S, BN254_G1, cfg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run()
+    wall = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall = run()
+    groups = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        m = re.search(r"::(\w+)<", e.key)
+        low = e.key.lower()
+        groups[(m and SYMBOLS.get(m.group(1))) or (
+            "sort" if ("sort" in low or "radix" in low)
+            else "torch glue")] += us / 1e3
+    busy = sum(groups.values())
+    stages = collections.Counter()
+    patched = [(JacobianOps, "rake_scan", "rake (K5)"),
+               (pippenger, "_block_carries", "carries"),
+               (JacobianOps, "j2c", "bucket phase"),
+               (pippenger, "_bucket_phase", "bucket phase"),
+               (JacobianOps, "c_dbl_n", "doublings"),
+               (JacobianOps, "c2j", "finish"),
+               (pippenger.glv_mod, "glv_table", "glv")]
+    saved = [getattr(owner, attr) for owner, attr, _ in patched]
+
+    def spanned(f, label):
+        def g(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages[label] += time.perf_counter() - t0
+            return out
+        return g
+
+    try:
+        for (owner, attr, label), f in zip(patched, saved):
+            setattr(owner, attr, spanned(f, label))
+        spanned_wall = run()
+    finally:
+        for (owner, attr, _), f in zip(patched, saved):
+            setattr(owner, attr, f)
+    stages["sort, bucket fill and the rest"] = spanned_wall - sum(
+        stages.values())
+    out = {"wall_s": wall, "profiled_wall_s": prof_wall,
+           "device_ms": dict(groups), "device_busy_ms": busy,
+           "device_idle_share": 1 - busy / (prof_wall * 1e3),
+           "spanned_wall_s": spanned_wall, "stages_s": dict(stages)}
+    log(f"msm engine small tier 2^{log2n} breakdown: wall_s={wall:.4f}; "
+        f"profiled wall_s={prof_wall:.4f}, device busy ms={busy:.3f}, idle "
+        f"share {out['device_idle_share']:.3f}, device ms by group "
+        + json.dumps({k: round(v, 4) for k, v in groups.most_common()})
+        + f"; synchronised stages (wall_s={spanned_wall:.4f}) "
+        + json.dumps({k: round(v, 5) for k, v in stages.most_common()}))
+    return out
+
+
 def check_fixed_base(log2n: int = 20, device: str = "cuda") -> None:
     """Phase 8: fixed_base_mul (w = 8) of tau^i, i < 2^20, through
     to_affine (the SRS factory's device path) equals the committed table
@@ -1386,6 +1706,12 @@ def main_path(log2n: int = 17, device: str = "cuda", profile: bool = True):
     per_proof = {k: v - before.get(k, 0) for k, v in fk.LAUNCHES.items()}
     elems = {k: v - elems_before.get(k, 0) for k, v in fk.ELEMS.items()}
     log(f"launches per proof: {json.dumps(per_proof, sort_keys=True)}")
+    # the proof's bytes under a fixed blinding source: another commit's
+    # smoke prints the same digest where its kernels compute the same bits
+    prover = c.create_prover()
+    prover.rng = counter_rng(SEED)
+    log(f"main path 2^{log2n}: proof sha256 under the counter rng "
+        f"{hashlib.sha256(prover.construct_proof()).hexdigest()}")
     cost = {}
     if device == "cuda" and profile:
         busy_ms, by_name = profile_proof(c)
@@ -1564,6 +1890,7 @@ def run(argv=()) -> int:
          check_engine, case)
     del case
     path("msm_engine_2pow11", ["rake_scan"], check_small_tier)
+    small_tier_breakdown()
     path("srs_fixed_base_2pow20", ["proj_dbl", "proj_add_complete"],
          check_fixed_base)
     path("proof_2pow20", pr1 + ["proj_dbl"], main_path, 20, "cuda", False)
@@ -1592,6 +1919,7 @@ def run(argv=()) -> int:
                                                      times}
     missing = [k["name"] for k in kernels
                if k["launches"] == 0 and k["name"] not in NO_PATH]
+    path_ranking(kernels)
     log(json.dumps({"kernels": kernels}))
     if missing:
         log(f"kernels never launched on any path: {missing}")

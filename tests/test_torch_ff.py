@@ -3,10 +3,15 @@ aztec_tpu.ff.limb and the pure-Python golden, bit-exact on the limbs.
 
 Inputs are 64 canonical elements per field made with numpy from a seed,
 including 0, 1 and p - 1.  The JAX side runs all functions in one jitted
-function per field, so each field costs one XLA:CPU compile.
+function per field, so each field costs one XLA:CPU compile.  The powers
+and inversions on unreduced lanes are held to the reference's results in
+``tests/torch_vectors/mont_pow.npz`` (``make_vectors.py``), not to a fresh
+compile.
 """
 
 import functools
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +23,10 @@ from aztec_tpu.ff import FQ as JFQ, FR as JFR, limb as jlimb
 from aztec_tpu_torch.ff import FQ, FR, golden, limb
 from aztec_tpu_torch.ff import field_kernels as fk
 from aztec_tpu_torch.numeric.bigint import ints_to_limbs, limbs_to_ints
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "torch_vectors"))
+import make_vectors  # noqa: E402
 
 SPECS = {"fr": (FR, JFR), "fq": (FQ, JFQ)}
 POW_BITS = np.array([1, 0, 1, 1, 0, 0, 1, 0, 1, 1, 1], np.uint32)  # e = 1869
@@ -214,6 +223,62 @@ def test_limb_matches_golden(field, fn):
                                        for x, y in zip(a, b)]
 
 
+@functools.lru_cache(maxsize=None)
+def _pow_vectors():
+    path = os.path.join(make_vectors.HERE, "mont_pow.npz")
+    with np.load(path) as f:
+        return {k: f[k].astype(np.int32) for k in f.files}
+
+
+POW_FNS = ("mont_pow", "inv_mont", "batch_inv_mont")
+
+
+@pytest.mark.parametrize("field", sorted(SPECS))
+@pytest.mark.parametrize("fn", POW_FNS)
+def test_powers_match_reference_on_unreduced_lanes(field, fn):
+    """limb.mont_pow (through the K1 wrapper, its plain version on the
+    CPU), inv_mont and batch_inv_mont (along an axis of length one) equal
+    the reference's on canonical and unreduced lanes (0, 1, p - 1, p,
+    p + 1, 2p - 1, all 0xFFFF, uniform limbs), bit for bit, with the
+    exponents p - 2, 2^100, 0 and 1; the canonical lanes also equal the
+    golden's powers."""
+    spec = SPECS[field][0]
+    vec = _pow_vectors()
+    A = torch.from_numpy(vec[f"{field}_in"])
+    assert torch.equal(A, torch.from_numpy(make_vectors.pow_inputs(
+        spec.modulus).astype(np.int32)))
+    xs = _ints(A)
+    if fn == "mont_pow":
+        cases = []
+        for k, e in enumerate(make_vectors.pow_exponents(spec.modulus)):
+            bits = np.array([(e >> i) & 1
+                             for i in range(max(e.bit_length(), 1))])
+            cases.append((limb.mont_pow(A, bits, spec), vec[f"{field}_pow{k}"],
+                          e))
+    elif fn == "inv_mont":
+        cases = [(limb.inv_mont(A, spec), vec[f"{field}_inv"],
+                  spec.modulus - 2)]
+    else:
+        got = limb.batch_inv_mont(A[:, :, None], spec, axis=-1)[:, :, 0]
+        cases = [(got, vec[f"{field}_batch_inv"], spec.modulus - 2)]
+    for got, want, e in cases:
+        assert np.array_equal(got.numpy().astype(np.int64),
+                              want.astype(np.int64)), hex(e)
+        for x, g in zip(xs, _ints(got)):
+            if x < spec.modulus:
+                assert g == golden.pow_(spec, x, e)
+
+
+def test_mont_pow_wrapper_exponent_words():
+    """The kernel's exponent: 8 words LSB first and the bit length; the
+    zero exponent has length 0; past 256 bits it is refused."""
+    words, nbits = fk.exp_words(np.array([1, 0, 1, 1] + [0] * 40 + [1]))
+    assert nbits == 45 and list(words) == [0b1101, 1 << 12] + [0] * 6
+    assert fk.exp_words(np.zeros(5))[1] == 0
+    with pytest.raises(ValueError):
+        fk.exp_words(np.ones(257))
+
+
 @pytest.mark.parametrize("field", sorted(SPECS))
 def test_field_kernel_wrappers_use_plain_version_on_cpu(field):
     spec = SPECS[field][0]
@@ -230,6 +295,8 @@ def test_field_kernel_wrappers_use_plain_version_on_cpu(field):
     t = limb.mont_mul(B, tw, spec)
     assert torch.equal(plus, limb.add_mod(A, t, spec))
     assert torch.equal(minus, limb.sub_mod(A, t, spec))
+    assert torch.equal(fk.mont_pow(A, POW_BITS, spec),
+                       limb.mont_pow_plain(A, POW_BITS, spec))
     assert dict(fk.LAUNCHES) == before  # nothing launched on the CPU
 
 
@@ -264,3 +331,28 @@ def test_k1_kernels_match_plain_on_card(field):
                            getattr(limb, fn)(A.cpu(), B.cpu(), spec))
     assert torch.equal(fk.mul_add(A, B, A.flip(1), spec).cpu(),
                        limb.mul_add(A.cpu(), B.cpu(), A.flip(1).cpu(), spec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 3, 1000, 1 << 16])
+@pytest.mark.parametrize("field", sorted(SPECS))
+def test_mont_pow_kernel_matches_plain_on_card(field, w):
+    """fk.mont_pow (the whole ladder in one launch) equals its plain
+    version on canonical and unreduced lanes, for e = p - 2, 2^100, 0, 1
+    (at 2^16 lanes p - 2 alone)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    spec = SPECS[field][0]
+    vec = make_vectors.pow_inputs(spec.modulus).astype(np.int32)
+    rng = np.random.default_rng(w)
+    A = rng.integers(0, 1 << 16, (16, w)).astype(np.int32)
+    A[:, :min(w, vec.shape[1])] = vec[:, :min(w, vec.shape[1])]
+    A[15, 1::3] %= spec.modulus >> 240          # canonical lanes
+    A = torch.from_numpy(A)
+    exps = make_vectors.pow_exponents(spec.modulus)
+    for e in exps if w < 1 << 16 else exps[:1]:
+        bits = np.array([(e >> i) & 1 for i in range(max(e.bit_length(), 1))])
+        before = fk.LAUNCHES["mont_pow"]
+        got = fk.mont_pow(A.cuda(), bits, spec)
+        assert fk.LAUNCHES["mont_pow"] == before + 1
+        assert torch.equal(got.cpu(), limb.mont_pow_plain(A, bits, spec))

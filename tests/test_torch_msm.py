@@ -4,6 +4,9 @@
   ``_rake_scan_packed_xla`` at K=4, B=128, bit-exact, on table points and
   on edge lanes (runs, restarts, alternating digits, P = Q and P = -Q
   inside a run, coordinates 0, 1, p - 1);
+- K5's step split over four lanes (``csrc/rake.cu`` ``rake_step4``) on the
+  word-level model of the lazy arithmetic against K5's plain version on
+  those edge lanes;
 - the composed bucket phase over rounds (``pippenger._bucket_phase``) and
   ``_finish`` (bucket phase + Horner fold) on the IntModOps mock group,
   as tests/test_chunked.py does, and against the reference's ``_finish``;
@@ -14,7 +17,9 @@
 """
 
 import functools
+import os
 import random
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +41,9 @@ from aztec_tpu_torch.ff import field_kernels as fk
 from aztec_tpu_torch.msm import chunked, glv, pippenger, rake
 from aztec_tpu_torch.numeric.bigint import ints_to_limbs, limbs_to_ints
 from aztec_tpu_torch.srs.reference_string import DEV_TAU, load_point_table
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_group import _lazy_field  # noqa: E402
 
 R_ORDER = BN254_G1.order
 CPU = torch.device("cpu")
@@ -131,6 +139,64 @@ def test_rake_plain_matches_reference_on_edge_lanes():
     Z = got[2].numpy().reshape(16, K, B)
     assert not Z[:, 1, 3].any() and not Z[:, 1, 4].any()
     assert np.array_equal(Z[:, 2, 3], ints_to_limbs([FQ.R % FQ.modulus])[:, 0])
+
+
+def _lazy_rake_step4(f, p, one, acc, prevd, dk, X2, Y2):
+    """csrc/rake.cu ``rake_step4``: lane r computes one product a level;
+    every lane forms the sums from the products shuffled in."""
+    mul, add, sub, _ = f
+    X1, Y1, Z1 = acc
+    lanes = range(4)
+    m1 = [mul(Y2 if r == 1 else Z1, Z1) for r in lanes]
+    Z1Z1, YZ = m1[0], m1[1]
+    m2 = [mul(YZ if r == 1 else X2, Z1Z1) for r in lanes]
+    H = sub(m2[0], X1)
+    R = sub(m2[1], Y1)
+    R = add(R, R)
+    ops3 = [H if r == 0 else (add(Z1, H) if r == 1 else R) for r in lanes]
+    HH, ZH, RR, _ = [mul(o, o) for o in ops3]
+    I = add(HH, HH)
+    I = add(I, I)
+    m4 = [mul(X1 if r == 1 else H, I) for r in lanes]
+    J, V = m4[0], m4[1]
+    X3 = sub(sub(RR, J), add(V, V))
+    m5 = [mul(Y1 if r == 1 else R, J if r == 1 else sub(V, X3))
+          for r in lanes]
+    Y3 = sub(m5[0], add(m5[1], m5[1]))
+    Z3 = sub(sub(ZH, Z1Z1), HH)
+    if dk != prevd or Z1 == 0:
+        return (X2, Y2, one)
+    return tuple(v - p if v >= p else v for v in (X3, Y3, Z3))
+
+
+@pytest.mark.parametrize("spec", [FR, FQ], ids=["fr", "fq"])
+def test_k5_four_lane_step_matches_plain(spec):
+    """K5's lazy kernel splits each mixed add over four lanes; on the
+    word-level model of the lazy arithmetic (every value kept in [0, 2p))
+    its partials equal K5's plain version's on the edge lanes (runs,
+    restarts, alternating digits, P = Q, P = -Q, coordinates 0, 1, p - 1),
+    bit for bit."""
+    K, B = 6, 14
+    p = spec.modulus
+    dig, packed = _rake_edge_lanes(spec, B, K, seed=8)
+    X, Y = rake.unpack(packed)
+    nord = torch.arange(K * B).reshape(K, B).T.reshape(-1)
+    sd = torch.from_numpy(dig.astype(np.int64)).T.reshape(-1)
+    want = rake.rake_scan_plain(sd, (X[:, nord], Y[:, nord]), B, K, spec)
+    want = [limbs_to_ints(w.reshape(16, -1).numpy().astype(np.uint32))
+            for w in want]
+    xs, ys = (limbs_to_ints(c[:, nord].numpy().astype(np.uint32))
+              for c in (X, Y))
+    f = _lazy_field(p)
+    one = spec.R % p
+    for b in range(B):
+        acc, prevd = (0, 0, 0), rake.SENTINEL
+        for k in range(K):
+            j = b * K + k
+            acc = _lazy_rake_step4(f, p, one, acc, prevd, int(sd[j]), xs[j],
+                                   ys[j])
+            prevd = int(sd[j])
+            assert acc == tuple(w[j] for w in want)
 
 
 def test_pack_affine_matches_reference():
@@ -250,6 +316,29 @@ def test_k3_rake_edge_lanes_on_card(spec, B):
         dig = torch.from_numpy(dig.astype(np.int64))
         got = rake.rake_scan_packed(dig.cuda(), packed.cuda(), B, K, spec)
         want = rake.rake_scan_packed_plain(dig, packed, B, K, spec)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 127, 128, 1000, 4096 + 5])
+@pytest.mark.parametrize("spec", [FR, FQ], ids=["fr", "fq"])
+def test_k5_rake_edge_lanes_on_card(spec, B):
+    """The redesigned K5 (four lanes a point, the next entry loaded ahead,
+    the exact kernel for flagged lanes) equals its plain version on the
+    edge lanes, with the top limb of some points set to 0xFFFF (at or
+    above p) in the middle of a run, for K in {1, 4, 32, 64}."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    for K in (1, 4, 32, 64):
+        dig, packed = _rake_edge_lanes(spec, B, K)
+        X, Y = rake.unpack(packed)
+        nord = torch.arange(K * B).reshape(K, B).T.reshape(-1)
+        X, Y = X[:, nord].clone(), Y[:, nord].clone()
+        X[15, K // 2::5 * K + 3] = 0xFFFF
+        sd = torch.from_numpy(dig.astype(np.int64)).T.reshape(-1)
+        got = rake.rake_scan(sd.cuda(), (X.cuda(), Y.cuda()), B, K, spec)
+        want = rake.rake_scan_plain(sd, (X, Y), B, K, spec)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
 

@@ -184,9 +184,46 @@ def test_sass_parse_counts_loops_and_instructions():
     assert vpu.loop == 8                   # 0x30..0xb0 less the NOP
     assert vpu.count == 13                 # less two NOPs and the tail BRA
     assert vpu.hist["IMAD"] == 5 and vpu.hist["BRA"] == 3
+    assert vpu.loop_hist == {"IMAD": 5, "IADD3": 1, "ISETP": 1, "BRA": 1}
     dis = got[("dissect_kernel", (2,))]
     assert (dis.loop, dis.count) == (0, 5)
     assert dis.hist["EXIT"] == 2
+
+
+@pytest.mark.parametrize("tool", ["vpu", "dissect"])
+def test_bounds_take_the_class_rate(tool, monkeypatch):
+    """The microbenchmarks' bounds on made-up SASS counts, on a made-up card
+    of one SM at 1 GHz: a loop of 16 shifts and 2 other instructions is
+    bound by its shifts at 64 a clock (16 / 64 > 18 / 128), one of 16
+    fp32 multiplies and 16 other instructions by the issue rate of 128 a
+    clock (16 / 128 < 32 / 128); the bytes where they take longer."""
+    import collections
+
+    from aztec_tpu_torch.tools import timing
+
+    monkeypatch.setattr(timing, "peak_per_s", lambda rate: rate * 1e9)
+    monkeypatch.setattr(timing, "HBM_BYTES_PER_S", 1e12)
+
+    def bound(hist, repeats):
+        count = sum(hist.values())
+        if tool == "vpu":              # UNROLL steps a trip, rows 1
+            k = sass.Kernel(collections.Counter(), count, count,
+                            collections.Counter(hist))
+            return vpu_microbench.vpu_bound(k, 1, repeats,
+                                            vpu_microbench.UNROLL)
+        k = sass.Kernel(collections.Counter(hist), 0, count)
+        return kernel_dissect.dissect_bound(k, repeats)
+
+    n = 1 << 20
+    shifts = {"SHF": 16, "IADD3": 1, "ISETP": 1}
+    assert bound(shifts, n) == (pytest.approx(16 * n / 64e9 * 1e3),
+                                "operations")
+    fmul = {"FMUL": 16, "IADD3": 8, "ISETP": 8}
+    assert bound(fmul, n) == (pytest.approx(32 * n / 128e9 * 1e3),
+                              "operations")
+    monkeypatch.setattr(timing, "HBM_BYTES_PER_S", 1e9)
+    nbytes = 12 * n if tool == "vpu" else 192 * n
+    assert bound(shifts, n) == (pytest.approx(nbytes / 1e9 * 1e3), "bytes")
 
 
 def _needs_card():

@@ -9,8 +9,19 @@ Proves two small Standard-PLONK circuits with the JAX package
   limbs: selector and sigma monomials plus sigma lagrange values.
 
 ``tests/test_torch_plonk.py`` holds the port (``aztec_tpu_torch``) to these
-bytes without compiling the JAX prover.  Regenerate (about 4 minutes of
-XLA:CPU compiles per circuit) with:
+bytes without compiling the JAX prover.
+
+Also ``mont_pow.npz``: the reference's ``mont_pow``, ``inv_mont`` and
+``batch_inv_mont`` (``aztec_tpu.ff.limb``) for Fr and Fq on POW_LANES
+lanes of canonical and unreduced 16-bit limbs (0, 1, p - 1, p, p + 1,
+2p - 1, all 0xFFFF, canonical and uniform random limbs), with the exponents
+p - 2, 2^100, 0 and 1; ``tests/test_torch_ff.py`` holds the port to them.
+The batch inversion runs along an axis of length one, so every lane is its
+own inversion (along a longer axis the reference's associative scan and
+the port's Hillis-Steele scan multiply unreduced lanes in other orders).
+
+Regenerate (about 4 minutes of XLA:CPU compiles per circuit, a few for the
+powers) with, optionally followed by the names to make:
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_vectors/make_vectors.py
 """
@@ -76,6 +87,51 @@ CIRCUITS = {
     "standard_chain8": (lambda mod: build_chain(mod, 8), 8),
 }
 
+POW_LANES = 16
+POW_SEED = 7
+
+
+def pow_exponents(p: int):
+    """The exponents of mont_pow.npz, in their order."""
+    return (p - 2, 1 << 100, 0, 1)
+
+
+def pow_inputs(p: int) -> np.ndarray:
+    """(16, POW_LANES) uint16 limbs: 0, 1, p - 1, p, p + 1, 2p - 1, all
+    0xFFFF, five canonical random elements, four lanes of uniform limbs."""
+    rng = np.random.default_rng(POW_SEED + p % 7)
+    vals = [0, 1, p - 1, p, p + 1, 2 * p - 1, (1 << 256) - 1]
+    vals += [int(rng.integers(0, 1 << 62)) ** 4 % p for _ in range(5)]
+    vals += [sum(int(w) << (16 * i) for i, w in
+                 enumerate(rng.integers(0, 1 << 16, 16)))
+             for _ in range(POW_LANES - len(vals))]
+    return np.array([[(v >> (16 * i)) & 0xFFFF for v in vals]
+                     for i in range(16)], dtype=np.uint16)
+
+
+def pow_vectors() -> None:
+    import jax.numpy as jnp
+
+    from aztec_tpu.ff import FQ, FR, limb
+
+    out = {}
+    for name, spec in (("fr", FR), ("fq", FQ)):
+        A = pow_inputs(spec.modulus)
+        a = jnp.asarray(A.astype(np.uint32))
+        out[f"{name}_in"] = A
+        for k, e in enumerate(pow_exponents(spec.modulus)):
+            bits = np.array([(e >> i) & 1 for i in range(max(e.bit_length(),
+                                                              1))],
+                            np.uint32)
+            out[f"{name}_pow{k}"] = np.asarray(limb.mont_pow(a, bits, spec))
+        out[f"{name}_inv"] = np.asarray(limb.inv_mont(a, spec))
+        out[f"{name}_batch_inv"] = np.asarray(
+            limb.batch_inv_mont(a[:, :, None], spec, axis=-1))[:, :, 0]
+    np.savez_compressed(os.path.join(HERE, "mont_pow.npz"),
+                        **{k: v.astype(np.uint16) for k, v in out.items()})
+    print("mont_pow: written", flush=True)
+
+
 SELECTORS = ("q_m", "q_c", "q_1", "q_2", "q_3")
 SIGMAS = ("sigma_1", "sigma_2", "sigma_3")
 
@@ -91,6 +147,8 @@ def main() -> None:
     mod = SimpleNamespace(StandardComposer=comp.StandardComposer,
                           MulTriple=comp.MulTriple, AddTriple=comp.AddTriple)
     only = set(sys.argv[1:])
+    if not only or "mont_pow" in only:
+        pow_vectors()
     for name, (build, seed) in CIRCUITS.items():
         if only and name not in only:
             continue
