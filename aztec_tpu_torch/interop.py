@@ -16,9 +16,6 @@ from .plonk.manifests import STANDARD, StandardSettings
 from .plonk.proving_key import ProvingKey
 from .srs.reference_string import ProverReferenceString
 
-SELECTORS = ("q_m", "q_c", "q_1", "q_2", "q_3")
-SIGMAS = ("sigma_1", "sigma_2", "sigma_3")
-
 
 def planes_from_numpy(arr, device="cuda") -> torch.Tensor:
     """(16, ...) uint16/uint32 limb planes -> int32 tensor on ``device``."""
@@ -42,17 +39,22 @@ def prover_srs_from_planes(X, Y, device="cuda") -> ProverReferenceString:
 def proving_key_from_numpy(n: int, num_public_inputs: int, planes: dict, srs,
                            settings: StandardSettings = STANDARD,
                            device="cuda") -> ProvingKey:
-    """A Standard proving key from the reference key's planes.
+    """A proving key from the reference key's planes, for the selectors and
+    sigmas of the settings' polynomial manifest (five and three for
+    Standard, eleven and four for Turbo).
 
-    ``planes`` maps ``"<name>_monomial"`` for the five selectors and three
-    sigmas, and ``"<sigma>_lagrange"`` for the sigmas (the reference keeps
-    only the sigmas' lagrange form), to (16, n) Montgomery planes.  The 4n
-    coset evaluations are recomputed on ``device`` from the monomials."""
+    ``planes`` maps ``"<name>_monomial"`` for every selector and sigma, and
+    ``"<sigma>_lagrange"`` for the sigmas (the reference keeps only the
+    sigmas' lagrange form), to (16, n) Montgomery planes.  The 4n coset
+    evaluations are recomputed on ``device`` from the monomials."""
     pk = ProvingKey(n, num_public_inputs, srs, settings, device)
-    for name in SELECTORS:
+    manifest = settings.polynomial_manifest
+    for name in (p.polynomial_label for p in manifest
+                 if p.source == "selector"):
         pk.add_monomial("selector", name,
                         planes_from_numpy(planes[f"{name}_monomial"], device))
-    for name in SIGMAS:
+    for name in (p.polynomial_label for p in manifest
+                 if p.source == "permutation"):
         pk.add_monomial("permutation", name,
                         planes_from_numpy(planes[f"{name}_monomial"], device),
                         planes_from_numpy(planes[f"{name}_lagrange"], device))

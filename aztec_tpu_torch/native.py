@@ -40,6 +40,7 @@ SIGNATURES = {
         "fk_mul_add": [_I, _P, _P, _P, _P, _LL, _P],
         "fk_mont_pow": [_I, _P, _P, _P, _I, _LL, _P],
         "fk_fft_stages": [_I, _P, _P, _P, _LL, _LL, _LL, _I, _P],
+        "fk_empty": [_P],
     },
     "group_ops": {
         "gk_mixed_add": [_I] + [_P] * 8 + [_LL, _P],

@@ -1,3 +1,4 @@
-"""Standard PLONK proof system (ref: plonk/proof_system/)."""
+"""Standard PLONK and TurboPlonk proof systems (ref: plonk/proof_system/)."""
 
-from .composer import AddTriple, MulTriple, PolyTriple, StandardComposer  # noqa: F401
+from .composer import (AddTriple, MulTriple, PolyTriple,  # noqa: F401
+                       StandardComposer, TurboComposer)

@@ -1,10 +1,11 @@
 """Circuit composer: gate recording, copy cycles, sigma permutations.
 
-Port of the ``StandardComposer`` of aztec_tpu/plonk/composer.py.  Gate
-recording and copy-cycle bookkeeping are host Python, carried over as they
-are (so identical circuits give identical sigma polynomials); selector
-transforms, sigma synthesis and key commitments run on the composer's
-device.  The Turbo, Ultra and MiMC composers are not ported.
+Port of the ``StandardComposer`` and ``TurboComposer`` of
+aztec_tpu/plonk/composer.py.  Gate recording and copy-cycle bookkeeping are
+host Python, carried over as they are (so identical circuits give identical
+sigma polynomials); selector transforms, sigma synthesis and key
+commitments run on the composer's device.  The Ultra and MiMC composers are
+not ported.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from ..ff.bn254 import FR_MOD
 from ..srs.reference_string import FakeReferenceStringFactory
 from . import kernels
-from .manifests import STANDARD, StandardSettings
+from .manifests import STANDARD, TURBO, StandardSettings
 from .proving_key import ProvingKey, VerificationKey, commit_many, ints_to_mont
 
 NUM_RESERVED_GATES = 4  # >= num_roots_cut_out_of_vanishing_polynomial
@@ -183,6 +184,13 @@ class ComposerBase:
         raise NotImplementedError
 
 
+def _device(device, who: str) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: CUDA was asked for and is not available")
+    return dev
+
+
 class StandardComposer(ComposerBase):
     """Width-3 composer (ref: plonk/composer/standard_composer.cpp)."""
 
@@ -190,10 +198,7 @@ class StandardComposer(ComposerBase):
                  device="cuda"):
         super().__init__()
         self.settings = settings
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("StandardComposer: CUDA was asked for and is "
-                               "not available")
+        self.device = _device(device, type(self).__name__)
         self.crs_factory = crs_factory or FakeReferenceStringFactory(
             device=self.device)
         self.w_l: List[int] = []
@@ -360,6 +365,11 @@ class StandardComposer(ComposerBase):
 
         return StandardFlavor
 
+    def _unrolled_flavor(self):
+        from .flavors import UnrolledStandardFlavor
+
+        return UnrolledStandardFlavor
+
     def create_prover(self):
         from .prover import Prover
 
@@ -371,3 +381,296 @@ class StandardComposer(ComposerBase):
         from .verifier import Verifier
 
         return Verifier(self.compute_verification_key(), self._flavor())
+
+    def create_unrolled_prover(self):
+        """Prover for in-circuit recursive verification
+        (ref: standard_composer.cpp create_unrolled_prover)."""
+        from .prover import Prover
+
+        pk = self.compute_proving_key()
+        wires, pubvals = self.compute_witness()
+        return Prover(pk, wires, pubvals, self._unrolled_flavor())
+
+    def create_unrolled_verifier(self):
+        from .verifier import Verifier
+
+        return Verifier(self.compute_verification_key(),
+                        self._unrolled_flavor())
+
+
+class TurboComposer(ComposerBase):
+    """Width-4 composer with custom gates
+    (ref: plonk/composer/turbo_composer.cpp:42-700)."""
+
+    SELECTORS = ("q_m", "q_c", "q_1", "q_2", "q_3", "q_4", "q_5",
+                 "q_arith", "q_ecc_1", "q_range", "q_logic")
+
+    def __init__(self, crs_factory=None, settings=TURBO, device="cuda"):
+        super().__init__()
+        self.settings = settings
+        self.device = _device(device, type(self).__name__)
+        self.crs_factory = crs_factory or FakeReferenceStringFactory(
+            device=self.device)
+        self.w_l: List[int] = []
+        self.w_r: List[int] = []
+        self.w_o: List[int] = []
+        self.w_4: List[int] = []
+        for s in self.SELECTORS:
+            setattr(self, s, [])
+        self.constant_variables: Dict[int, int] = {}
+        self.zero_idx = self.put_constant_variable(0)
+        self._pk: Optional[ProvingKey] = None
+        self._vk: Optional[VerificationKey] = None
+
+    def _wire_lists(self):
+        return (self.w_l, self.w_r, self.w_o, self.w_4)
+
+    def _flavor(self):
+        from .flavors import TurboFlavor
+
+        return TurboFlavor
+
+    def _unrolled_flavor(self):
+        from .flavors import UnrolledTurboFlavor
+
+        return UnrolledTurboFlavor
+
+    create_unrolled_prover = StandardComposer.create_unrolled_prover
+    create_unrolled_verifier = StandardComposer.create_unrolled_verifier
+
+    # -- gate recording --------------------------------------------------------
+    def _push(self, a, b, c, d, **sel):
+        self.w_l.append(a)
+        self.w_r.append(b)
+        self.w_o.append(c)
+        self.w_4.append(d)
+        for s in self.SELECTORS:
+            getattr(self, s).append(sel.get(s, 0) % FR_MOD)
+        self.n += 1
+
+    def create_dummy_gate(self):
+        """All-zero-selector gate with a nonzero wire value
+        (ref: turbo_composer.cpp:72-92)."""
+        idx = self.add_variable((1 << 64) + 1)
+        self._push(idx, idx, idx, idx)
+
+    def create_add_gate(self, t: AddTriple):
+        self._push(t.a, t.b, t.c, self.zero_idx, q_1=t.a_scaling,
+                   q_2=t.b_scaling, q_3=t.c_scaling, q_c=t.const_scaling,
+                   q_arith=1)
+
+    def create_big_add_gate(self, a, b, c, d, a_s, b_s, c_s, d_s, const_s,
+                            q_arith=1):
+        self._push(a, b, c, d, q_1=a_s, q_2=b_s, q_3=c_s, q_4=d_s,
+                   q_c=const_s, q_arith=q_arith)
+
+    def create_big_add_gate_with_bit_extraction(self, a, b, c, d, a_s, b_s,
+                                                c_s, d_s, const_s):
+        self.create_big_add_gate(a, b, c, d, a_s, b_s, c_s, d_s, const_s,
+                                 q_arith=2)
+
+    def create_big_mul_gate(self, a, b, c, d, mul_s, a_s, b_s, c_s, d_s,
+                            const_s):
+        self._push(a, b, c, d, q_m=mul_s, q_1=a_s, q_2=b_s, q_3=c_s, q_4=d_s,
+                   q_c=const_s, q_arith=1)
+
+    def create_balanced_add_gate(self, a, b, c, d, a_s, b_s, c_s, d_s,
+                                 const_s):
+        """Width-4 add where d must be in [0,3] (q_5 activates the range
+        term in the turbo arithmetic kernel)."""
+        self._push(a, b, c, d, q_1=a_s, q_2=b_s, q_3=c_s, q_4=d_s,
+                   q_5=1, q_c=const_s, q_arith=1)
+
+    def create_mul_gate(self, t: MulTriple):
+        self._push(t.a, t.b, t.c, self.zero_idx, q_m=t.mul_scaling,
+                   q_3=t.c_scaling, q_c=t.const_scaling, q_arith=1)
+
+    def create_bool_gate(self, a: int):
+        self._push(a, a, a, self.zero_idx, q_m=1, q_3=-1, q_arith=1)
+
+    def create_poly_gate(self, t: PolyTriple):
+        self._push(t.a, t.b, t.c, self.zero_idx, q_m=t.q_m, q_1=t.q_l,
+                   q_2=t.q_r, q_3=t.q_o, q_c=t.q_c, q_arith=1)
+
+    def create_fixed_group_add_gate(self, a, b, c, d, q_x_1, q_x_2, q_y_1,
+                                    q_y_2):
+        """Grumpkin 2-bit fixed-base ladder add
+        (ref: turbo_composer.cpp:269-290)."""
+        self._push(a, b, c, d, q_1=q_x_1, q_2=q_x_2, q_3=q_y_1,
+                   q_ecc_1=q_y_2)
+
+    def create_fixed_group_add_gate_with_init(self, a, b, c, d, q_x_1, q_x_2,
+                                              q_y_1, q_y_2, i_x_1, i_x_2,
+                                              i_y_1, i_y_2):
+        self._push(a, b, c, d, q_1=q_x_1, q_2=q_x_2, q_3=q_y_1,
+                   q_ecc_1=q_y_2, q_4=i_x_1, q_5=i_x_2, q_m=i_y_1,
+                   q_c=i_y_2)
+
+    def fix_witness(self, witness_index: int, value: int):
+        z = getattr(self, "zero_idx", 0)
+        self._push(witness_index, z, z, z, q_1=1, q_c=-value, q_arith=1)
+
+    def put_constant_variable(self, value: int) -> int:
+        value %= FR_MOD
+        if value in self.constant_variables:
+            return self.constant_variables[value]
+        idx = self.add_variable(value)
+        self.fix_witness(idx, value)
+        self.constant_variables[value] = idx
+        return idx
+
+    # -- accumulator constraints -------------------------------------------------
+    def create_range_constraint(self, witness_index: int, num_bits: int):
+        """Base-4 accumulator range check, (bits/8) gates
+        (ref: turbo_composer.cpp:337-478)."""
+        value = self.get_variable(witness_index)
+        num_quad_gates = num_bits >> 3
+        if (num_quad_gates << 3) != num_bits:
+            num_quad_gates += 1
+        num_quads = num_quad_gates << 2
+        forced_zero_threshold = 1 + (((num_quads << 1) - num_bits) >> 1)
+
+        wires = (self.w_4, self.w_o, self.w_r, self.w_l)
+        accumulators = []
+        accumulator = 0
+        most_significant_segment = 0
+        for i in range(num_quads + 1):
+            if i < forced_zero_threshold:
+                accumulator_index = self.zero_idx
+            else:
+                bit_index = (num_quads - i) << 1
+                quad = ((value >> bit_index) & 1) + 2 * ((value >> (bit_index + 1)) & 1)
+                accumulator = (4 * accumulator + quad) % FR_MOD
+                accumulator_index = self.add_variable(accumulator)
+                accumulators.append(accumulator_index)
+                if i == forced_zero_threshold:
+                    most_significant_segment = accumulator_index
+            wires[i & 3].append(accumulator_index)
+
+        used_gates = (num_quads + 1 + 3) // 4
+        for i in range(used_gates):
+            q_r = 1 if i < used_gates - 1 else 0
+            for s in self.SELECTORS:
+                getattr(self, s).append(q_r if s == "q_range" else 0)
+        self.w_l.append(self.zero_idx)
+        self.w_r.append(self.zero_idx)
+        self.w_o.append(self.zero_idx)
+
+        self.assert_equal(witness_index, accumulators[-1],
+                          "range constraint value mismatch")
+        accumulators[-1] = witness_index
+        self.n += used_gates
+
+        if num_bits & 1:
+            self.create_bool_gate(most_significant_segment)
+        return accumulators
+
+    def create_logic_constraint(self, a: int, b: int, num_bits: int,
+                                is_xor: bool):
+        """Quad-accumulator AND/XOR, (bits/2)+1 gates
+        (ref: turbo_composer.cpp:480-654)."""
+        assert num_bits % 2 == 0
+        left_val = self.get_variable(a)
+        right_val = self.get_variable(b)
+        num_quads = num_bits >> 1
+
+        out = {"left": [], "right": [], "out": []}
+        left_acc = right_acc = out_acc = 0
+
+        self.w_l.append(self.zero_idx)
+        self.w_r.append(self.zero_idx)
+        self.w_4.append(self.zero_idx)
+        for i in range(num_quads):
+            bit_index = (num_quads - 1 - i) << 1
+            lq = ((left_val >> bit_index) & 1) + 2 * ((left_val >> (bit_index + 1)) & 1)
+            rq = ((right_val >> bit_index) & 1) + 2 * ((right_val >> (bit_index + 1)) & 1)
+            oq = (lq ^ rq) if is_xor else (lq & rq)
+            left_acc = (4 * left_acc + lq) % FR_MOD
+            right_acc = (4 * right_acc + rq) % FR_MOD
+            out_acc = (4 * out_acc + oq) % FR_MOD
+            li = self.add_variable(left_acc)
+            ri = self.add_variable(right_acc)
+            oi = self.add_variable(out_acc)
+            pi = self.add_variable(lq * rq)
+            out["left"].append(li)
+            out["right"].append(ri)
+            out["out"].append(oi)
+            self.w_l.append(li)
+            self.w_r.append(ri)
+            self.w_4.append(oi)
+            self.w_o.append(pi)
+        self.w_o.append(self.zero_idx)
+
+        qc_val = (-1 if is_xor else 1) % FR_MOD
+        for i in range(num_quads + 1):
+            last = i == num_quads
+            for s in self.SELECTORS:
+                if s in ("q_c", "q_logic") and not last:
+                    getattr(self, s).append(qc_val if s == "q_c" else qc_val)
+                else:
+                    getattr(self, s).append(0)
+        self.assert_equal(out["left"][-1], a, "logic constraint left mismatch")
+        out["left"][-1] = a
+        self.assert_equal(out["right"][-1], b, "logic constraint right mismatch")
+        out["right"][-1] = b
+        self.n += num_quads + 1
+        return out
+
+    def create_and_constraint(self, a, b, num_bits):
+        return self.create_logic_constraint(a, b, num_bits, False)
+
+    def create_xor_constraint(self, a, b, num_bits):
+        return self.create_logic_constraint(a, b, num_bits, True)
+
+    # -- keys ------------------------------------------------------------------
+    subgroup_size = StandardComposer.subgroup_size
+    compute_verification_key = StandardComposer.compute_verification_key
+    create_prover = StandardComposer.create_prover
+    create_verifier = StandardComposer.create_verifier
+
+    def compute_proving_key(self) -> ProvingKey:
+        if self._pk is not None:
+            return self._pk
+        self.create_dummy_gate()  # ref: turbo_composer.cpp:684
+        num_pub = len(self.public_inputs)
+        size = self.subgroup_size()
+        srs = self.crs_factory.get_prover_srs(size + 1)
+        pk = ProvingKey(size, num_pub, srs, self.settings, self.device)
+        for name in self.SELECTORS:
+            coeffs = getattr(self, name)
+            padded = (
+                [0] * num_pub + list(coeffs)
+                + [0] * (size - 1 - self.n - num_pub) + [1]
+            )
+            pk.add_polynomial("selector", name,
+                              ints_to_mont(padded, self.device))
+        next_rows, factor_idx = self.compute_sigma_mappings(size, 4)
+        for i in range(4):
+            lag = kernels.sigma_from_mapping(
+                torch.from_numpy(next_rows[i]), torch.from_numpy(factor_idx[i]),
+                pk.omega_pows, size,
+            )
+            pk.add_polynomial("permutation", f"sigma_{i+1}", lag,
+                              keep_lagrange=True)
+        self._pk = pk
+        return pk
+
+    def compute_witness(self):
+        num_pub = len(self.public_inputs)
+        size = self.subgroup_size()
+        pubvals = [self.get_variable(i) for i in self.public_inputs]
+        pad = size - self.n - num_pub
+
+        def build(wlist, include_pub):
+            vals = (pubvals if include_pub else [0] * num_pub) + [
+                self.get_variable(w) for w in wlist
+            ] + [0] * pad
+            return ints_to_mont(vals, self.device)
+
+        return {
+            "w_1": build(self.w_l, True),
+            "w_2": build(self.w_r, True),
+            "w_3": build(self.w_o, False),
+            "w_4": build(self.w_4, False),
+        }, pubvals
+

@@ -1,10 +1,11 @@
-"""Scheme flavor of Standard PLONK: the fused quotient kernel, the host
-linear-term scalars for r(X) and the verifier's [D]_1, and the verifier's
-quotient-evaluation reconstruction.
+"""Scheme flavors: the quotient kernel, the host linear-term scalars for
+r(X) and the verifier's [D]_1, and the verifier's quotient-evaluation
+reconstruction, for Standard PLONK and TurboPlonk, each with the keccak
+transcript and unrolled (the Pedersen-Blake2s transcript, no
+linearisation).
 
-Port of ``StandardFlavor`` of aztec_tpu/plonk/flavors.py (the Turbo, Ultra,
-MiMC and unrolled flavors are not ported).  All host scalar math is
-canonical-int mod r.
+Port of aztec_tpu/plonk/flavors.py but its Ultra and MiMC flavors.  All
+host scalar math is canonical-int mod r.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..ff.bn254 import FR_MOD, FR_COSET_GENERATORS
-from .manifests import STANDARD
+from .manifests import STANDARD, TURBO, UNROLLED_STANDARD, UNROLLED_TURBO
 from . import kernels
 
 M = FR_MOD
@@ -117,4 +118,191 @@ class StandardFlavor:
         return _perm_t_contribution(ev, ch, l_start, l_end, delta, 3)
 
 
-FLAVORS = {"standard": StandardFlavor}
+class TurboFlavor:
+    settings = TURBO
+    width = 4
+
+    SELECTOR_ORDER = (
+        "q_m", "q_1", "q_2", "q_3", "q_4", "q_5", "q_c", "q_arith",
+        "q_ecc_1", "q_range", "q_logic",
+    )
+
+    @classmethod
+    def quotient_evals(cls, pk, wire_fft, ch_mont, n):
+        wffts = torch.stack([wire_fft[f"w_{i}"] for i in range(1, 5)], dim=1)
+        sffts = torch.stack(
+            [pk.sigmas[f"sigma_{i}"].fft for i in range(1, 5)], dim=1
+        )
+        qffts = torch.stack(
+            [pk.selectors[q].fft for q in cls.SELECTOR_ORDER], dim=1
+        )
+        return kernels.turbo_quotient(
+            wffts, sffts, wire_fft["z"], qffts, pk.l1_fft, pk.coset_pts,
+            pk.vanish_scale, ch_mont["alphas"], ch_mont["beta"],
+            ch_mont["gamma"], ch_mont["delta"], n,
+        )
+
+    @staticmethod
+    def selector_linear_scalars(ev, ch):
+        """Turbo widget linear terms from evaluations, alphas folded in
+        (ref: turbo_arithmetic_widget.hpp:18-63 x alpha^4,
+        turbo_fixed_base_widget.hpp:18-62 with alpha^6..12,
+        turbo_range_widget.hpp with alpha^13..16,
+        turbo_logic_widget.hpp with alpha^17)."""
+        al = ch["alpha"]
+        ap = [pow(al, k, M) for k in range(22)]  # ap[k] = alpha^k
+        a, b, c, d = ev["w_1"], ev["w_2"], ev["w_3"], ev["w_4"]
+        aw, bw, cw, dw = (
+            ev["w_1_omega"], ev["w_2_omega"], ev["w_3_omega"], ev["w_4_omega"]
+        )
+        q_arith, q_ecc, q_c_ev = ev["q_arith"], ev["q_ecc_1"], ev["q_c"]
+
+        out = {}
+        # turbo arithmetic (x alpha^4; q5 term carries one extra alpha)
+        out["q_m"] = q_arith * a % M * b % M * ap[4] % M
+        out["q_1"] = q_arith * a % M * ap[4] % M
+        out["q_2"] = q_arith * b % M * ap[4] % M
+        out["q_3"] = q_arith * c % M * ap[4] % M
+        out["q_4"] = q_arith * d % M * ap[4] % M
+        out["q_5"] = (
+            (d * d - d) % M * ((d - 2) % M) % M * q_arith % M * ap[5]
+        ) % M
+        out["q_c"] = q_arith * ap[4] % M
+
+        # fixed-base ECC
+        delta = (dw - 4 * d) % M
+        out["q_1"] = (out["q_1"] + delta * delta % M * q_ecc % M * ap[7]) % M
+        out["q_2"] = (out["q_2"] + q_ecc * ap[7]) % M
+        q3m = (aw - a) % M * delta % M * cw % M * ap[9] % M * q_ecc % M
+        t1 = delta * cw % M * b % M * ap[8] % M
+        q3m = (q3m + 2 * t1 % M * q_ecc) % M
+        out["q_3"] = (out["q_3"] + q3m) % M
+        out["q_4"] = (out["q_4"] + c * q_ecc % M * q_c_ev % M * ap[11]) % M
+        out["q_5"] = (
+            out["q_5"] + (1 - d) % M * q_ecc % M * q_c_ev % M * ap[11]
+        ) % M
+        out["q_m"] = (out["q_m"] + c * q_ecc % M * q_c_ev % M * ap[12]) % M
+
+        # range
+        def quad(x):
+            return x % M * ((x - 1) % M) % M * ((x - 2) % M) % M * ((x - 3) % M) % M
+
+        d1 = (c - 4 * d) % M
+        d2 = (b - 4 * c) % M
+        d3 = (a - 4 * b) % M
+        d4 = (dw - 4 * a) % M
+        out["q_range"] = (
+            quad(d1) * ap[13] + quad(d2) * ap[14]
+            + quad(d3) * ap[15] + quad(d4) * ap[16]
+        ) % M
+
+        # logic
+        qa = (aw - 4 * a) % M
+        qb = (bw - 4 * b) % M
+        ds = (qa + qb) % M
+        dss = (qa * qa + qb * qb) % M
+        identity = (ds * ds - dss - 2 * c) % M * al % M
+        t2a = (qa * qa - qa) % M
+        identity = (identity + (t2a - 4 * qa + 6) % M * t2a) % M * al % M
+        t3b = (qb * qb - qb) % M
+        identity = (identity + (t3b - 4 * qb + 6) % M * t3b) % M * al % M
+        w_term = ((4 * c - 18 * ds + 81) % M) * c % M
+        w_term = (w_term + 18 * dss - 81 * ds + 83) % M * c % M
+        qc_quad = (dw - 4 * d) % M
+        t3 = (9 * qc_quad - 3 * ds) % M * q_c_ev % M
+        t2 = (3 * qc_quad + 3 * ds - 2 * w_term + t3) % M
+        out["q_logic"] = (identity + t2) % M * ap[17] % M
+        return out
+
+    @staticmethod
+    def perm_linear_terms(ev, ch, l_start):
+        return _perm_linear_terms(ev, ch, l_start, 4)
+
+    @classmethod
+    def verifier_t_contribution(cls, ev, ch, l_start, l_end, delta):
+        t = _perm_t_contribution(ev, ch, l_start, l_end, delta, 4)
+        return (t + cls._nonlinear_t_terms(ev, ch)) % M
+
+    @staticmethod
+    def _nonlinear_t_terms(ev, ch):
+        """Turbo-arithmetic quad extraction + fixed-base gate identity from
+        evaluations (ref: turbo_arithmetic_widget.hpp:66-123,
+        turbo_fixed_base_widget.hpp:85-158)."""
+        t = 0
+        al = ch["alpha"]
+        ap = [pow(al, k, M) for k in range(14)]
+        a, b, c, d = ev["w_1"], ev["w_2"], ev["w_3"], ev["w_4"]
+        aw, bw, cw, dw = (
+            ev["w_1_omega"], ev["w_2_omega"], ev["w_3_omega"], ev["w_4_omega"]
+        )
+        q_arith, q_ecc, q_c_ev = ev["q_arith"], ev["q_ecc_1"], ev["q_c"]
+
+        # arithmetic quad-extraction (q_arith == 2 branch)
+        dlt = (c - 4 * d) % M
+        term = dlt * ((9 * dlt - 2 * dlt * dlt - 7) % M) % M
+        t = (t + (q_arith * q_arith - q_arith) % M * term % M * ap[4]) % M
+
+        # fixed-base non-linear gate identity
+        de = (dw - 4 * d) % M
+        acc_id = (
+            (de + 1) * (de + 3) % M * ((de - 1) % M) % M * ((de - 3) % M) % M
+            * ap[6]
+        ) % M
+        x_alpha_id = (-(cw * ap[7])) % M
+        t0 = (aw + a + cw) % M * pow((cw - a) % M, 2, M) % M
+        t1 = (-(cw * cw % M * cw + b * b - 17)) % M
+        t2 = 2 * de * b % M * q_ecc % M
+        x_acc_id = (t0 + t1 + t2) % M * ap[8] % M
+        t0 = (bw + b) % M * ((cw - a) % M) % M
+        t1 = (a - aw) % M * ((b - q_ecc * de) % M) % M
+        y_acc_id = (t0 + t1) % M * ap[9] % M
+        t0 = (d - 1) % M
+        t1 = (t0 - c) % M
+        acc_init_id = t0 * t1 % M * ap[10] % M
+        x_init_id = (-(a * c % M * ap[11])) % M
+        y_init_id = ((1 - d) * q_c_ev - b * c) % M * ap[12] % M
+        gate_id = (acc_init_id + x_init_id + y_init_id) % M * q_c_ev % M
+        gate_id = (gate_id + acc_id + x_alpha_id + x_acc_id + y_acc_id) % M
+        t = (t + gate_id * q_ecc) % M
+        return t
+
+
+class UnrolledStandardFlavor(StandardFlavor):
+    """Unrolled standard PLONK (no linearisation; ref: prover_settings.hpp:
+    28-40 + unrolled_standard_verifier_settings)."""
+
+    settings = UNROLLED_STANDARD
+
+    @classmethod
+    def verifier_t_contribution(cls, ev, ch, l_start, l_end, delta):
+        t = _perm_t_contribution(ev, ch, l_start, l_end, delta, 3,
+                                 use_linearisation=False)
+        # arithmetic widget linear sum from evaluations
+        for sel, scalar in cls.selector_linear_scalars(ev, ch).items():
+            t = (t + scalar * ev[sel]) % M
+        return t
+
+
+class UnrolledTurboFlavor(TurboFlavor):
+    """Unrolled TurboPlonk (ref: prover_settings.hpp:57-68 +
+    unrolled_turbo_verifier_settings)."""
+
+    settings = UNROLLED_TURBO
+
+    @classmethod
+    def verifier_t_contribution(cls, ev, ch, l_start, l_end, delta):
+        # permutation (unrolled) + all widget non-linear terms
+        t = _perm_t_contribution(ev, ch, l_start, l_end, delta, 4,
+                                 use_linearisation=False)
+        t = (t + TurboFlavor._nonlinear_t_terms(ev, ch)) % M
+        for sel, scalar in cls.selector_linear_scalars(ev, ch).items():
+            t = (t + scalar * ev[sel]) % M
+        return t
+
+
+FLAVORS = {
+    "standard": StandardFlavor,
+    "turbo": TurboFlavor,
+    "unrolled_standard": UnrolledStandardFlavor,
+    "unrolled_turbo": UnrolledTurboFlavor,
+}

@@ -1,9 +1,9 @@
-"""Prover-round device kernels of Standard PLONK.
+"""Prover-round device kernels of Standard PLONK and TurboPlonk.
 
-Port of the Standard subset of aztec_tpu/plonk/kernels.py:
-``grand_product``, ``_perm_quotient``, ``std_quotient``,
-``linear_combination``, ``sigma_from_mapping`` and
-``vanishing_scale_table``.  Every field op goes through the K1 wrappers
+Port of aztec_tpu/plonk/kernels.py but its lookup, MiMC and elliptic
+kernels: ``grand_product``, ``_perm_quotient``, ``std_quotient``,
+``turbo_quotient`` (with ``_turbo_terms``), ``linear_combination``,
+``sigma_from_mapping`` and ``vanishing_scale_table``.  Every field op goes through the K1 wrappers
 (``ff/field_kernels.py``), so on the card each is one elementwise kernel
 launch; the associative scans of the reference become Hillis-Steele scans
 (``limb.scan_mul``), exact in any order.
@@ -115,6 +115,169 @@ def std_quotient(wffts, sffts, zfft, qffts, l1fft, coset_pts, vanish_scale,
     arith = _add(arith, qffts[:, 4])
     arith = _mul(arith, alpha_quad)
     return _mul(_add(perm, arith), vanish_scale)
+
+
+def _quad_range_term(delta):
+    """D(D-1)(D-2)(D-3) (ref: turbo_range_widget.hpp)."""
+    dev = delta.device
+    t0 = _sub(_mul(delta, delta), delta)
+    t1 = _sub(delta, _c(2, dev))
+    t2 = _sub(delta, _c(3, dev))
+    return _mul(_mul(t0, t1), t2)
+
+
+def _dbl2(x):
+    return _add(x, x)
+
+
+def _x4(x):
+    return _dbl2(_dbl2(x))
+
+
+def _turbo_terms(wffts, sffts, zfft, qffts, l1fft, coset_pts, vanish_scale,
+                 alphas, beta, gamma, delta, n: int):
+    """TurboPlonk quotient over the 4n coset: permutation + turbo
+    arithmetic + fixed-base ECC + range + logic, every field op one K1
+    launch (ref: turbo_arithmetic_widget.hpp, turbo_fixed_base_widget.hpp:
+    8-176, turbo_range_widget.hpp, turbo_logic_widget.hpp; alpha schedule
+    per transition_widget.hpp:43-90 — perm ends at alpha^4, arithmetic spans
+    alpha^4..5, fixed-base alpha^6..12, range alpha^13..16, logic
+    alpha^17..20).
+
+    wffts/sffts: (16, 4, 4n); qffts: (16, 11, 4n) in order qm q1 q2 q3 q4
+    q5 qc qarith qecc qrange qlogic; alphas: (16, >= 21), alpha^1.. ."""
+    dev = wffts.device
+    a = lambda p: alphas[:, p - 1: p]  # alpha^p as (16, 1)
+    c = lambda v: _c(v, dev)
+
+    # contiguous once: each K1 launch would copy a strided slice again
+    w1, w2, w3, w4 = (wffts[:, i].contiguous() for i in range(4))
+    w1w, w2w, w3w, w4w = (torch.roll(w, -4, dims=1)
+                          for w in (w1, w2, w3, w4))
+    qm, q1, q2, q3, q4, q5, qc, qarith, qecc, qrange, qlogic = (
+        qffts[:, i].contiguous() for i in range(11))
+    one = c(1)
+
+    perm = _perm_quotient(wffts, sffts, zfft, l1fft, coset_pts, a(1), beta,
+                          gamma, delta)
+
+    # ---- turbo arithmetic (alpha^4, alpha^5) --------------------------------
+    arith = _mul(qm, _mul(_mul(w1, w2), qarith))
+    arith = _add(arith, _mul(q1, _mul(w1, qarith)))
+    arith = _add(arith, _mul(q2, _mul(w2, qarith)))
+    arith = _add(arith, _mul(q3, _mul(w3, qarith)))
+    arith = _add(arith, _mul(q4, _mul(w4, qarith)))
+    # q5 multiplicand: (w4^2 - w4)(w4 - 2) * q_arith * alpha
+    t5 = _mul(_sub(_mul(w4, w4), w4), _sub(w4, c(2)))
+    arith = _add(arith, _mul(q5, _mul(_mul(t5, qarith), a(1))))
+    arith = _add(arith, _mul(qc, qarith))
+    arith = _mul(arith, a(4))
+
+    # non-linear quad-extraction term, active when q_arith == 2
+    dlt = _sub(w3, _x4(w4))
+    t = _mul(dlt, _sub(_sub(_mul(c(9), dlt), _dbl2(_mul(dlt, dlt))), c(7)))
+    arith = _add(arith, _mul(_mul(_sub(_mul(qarith, qarith), qarith), t),
+                             a(4)))
+
+    # ---- fixed-base ECC (alpha^6..alpha^12) ---------------------------------
+    delta_e = _sub(w4w, _x4(w4))
+    delta_sq = _mul(delta_e, delta_e)
+
+    fb = _mul(q1, _mul(_mul(delta_sq, qecc), a(7)))
+    fb = _add(fb, _mul(q2, _mul(qecc, a(7))))
+    q3m = _mul(_mul(_mul(_sub(w1w, w1), delta_e), _mul(w3w, a(9))), qecc)
+    t1 = _mul(_mul(delta_e, w3w), _mul(w2, a(8)))
+    q3m = _add(q3m, _mul(_dbl2(t1), qecc))
+    fb = _add(fb, _mul(q3, q3m))
+    fb = _add(fb, _mul(q4, _mul(_mul(w3, qecc), _mul(qc, a(11)))))
+    fb = _add(fb, _mul(q5, _mul(_mul(_sub(one, w4), qecc), _mul(qc, a(11)))))
+    fb = _add(fb, _mul(qm, _mul(_mul(w3, qecc), _mul(qc, a(12)))))
+
+    # non-linear terms
+    acc_id = _mul(
+        _mul(_mul(_add(delta_e, one), _add(delta_e, c(3))),
+             _mul(_sub(delta_e, one), _sub(delta_e, c(3)))),
+        a(6))
+    x_alpha_id = limb.neg_mod(_mul(w3w, a(7)), FR)
+    t0 = _mul(_add(_add(w1w, w1), w3w), _mul(_sub(w3w, w1), _sub(w3w, w1)))
+    t1 = limb.neg_mod(
+        _add(_add(_mul(_mul(w3w, w3w), w3w), _mul(w2, w2)),
+             c((-17) % FR_MOD)),
+        FR)
+    t2 = _dbl2(_mul(_mul(delta_e, w2), qecc))
+    x_acc_id = _mul(_add(_add(t0, t1), t2), a(8))
+    t0 = _mul(_add(w2w, w2), _sub(w3w, w1))
+    t1 = _mul(_sub(w1, w1w), _sub(w2, _mul(qecc, delta_e)))
+    y_acc_id = _mul(_add(t0, t1), a(9))
+    t0 = _sub(w4, one)
+    t1 = _sub(t0, w3)
+    acc_init_id = _mul(_mul(t0, t1), a(10))
+    x_init_id = limb.neg_mod(_mul(_mul(w1, w3), a(11)), FR)
+    y_init_id = _mul(_sub(_mul(_sub(one, w4), qc), _mul(w2, w3)), a(12))
+    gate_id = _mul(_add(_add(acc_init_id, x_init_id), y_init_id), qc)
+    gate_id = _add(_add(gate_id, acc_id),
+                   _add(x_alpha_id, _add(x_acc_id, y_acc_id)))
+    fb = _add(fb, _mul(gate_id, qecc))
+
+    # ---- range (alpha^13..alpha^16) -----------------------------------------
+    d1 = _sub(w3, _x4(w4))
+    d2 = _sub(w2, _x4(w3))
+    d3 = _sub(w1, _x4(w2))
+    d4 = _sub(w4w, _x4(w1))
+    rng = _mul(_quad_range_term(d1), a(13))
+    rng = _add(rng, _mul(_quad_range_term(d2), a(14)))
+    rng = _add(rng, _mul(_quad_range_term(d3), a(15)))
+    rng = _add(rng, _mul(_quad_range_term(d4), a(16)))
+    rng = _mul(rng, qrange)
+
+    # ---- logic (alpha^17..alpha^20) -----------------------------------------
+    alpha1 = a(1)
+    qa = _sub(w1w, _x4(w1))
+    qb = _sub(w2w, _x4(w2))
+    delta_sum = _add(qa, qb)
+    qa2 = _mul(qa, qa)
+    qb2 = _mul(qb, qb)
+    delta_sq_sum = _add(qa2, qb2)
+    identity = _sub(_mul(delta_sum, delta_sum), delta_sq_sum)  # 2ab
+    identity = _sub(identity, _dbl2(w3))                        # 2(ab - w)
+    identity = _mul(identity, alpha1)
+    # + a(a-1)(a-2)(a-3), then * alpha
+    t2a = _sub(qa2, qa)
+    t0 = _add(_sub(t2a, _x4(qa)), c(6))
+    identity = _mul(_add(identity, _mul(t0, t2a)), alpha1)
+    t3b = _sub(qb2, qb)
+    t1 = _add(_sub(t3b, _x4(qb)), c(6))
+    identity = _mul(_add(identity, _mul(t1, t3b)), alpha1)
+
+    three_ab = _add(_dbl2(delta_sum), delta_sum)          # 3(a+b)
+    nine_ab = _add(_dbl2(three_ab), three_ab)             # 9(a+b)
+    eighteen_ab = _dbl2(nine_ab)                          # 18(a+b)
+    eightyone_ab = _add(nine_ab, _x4(eighteen_ab))        # 81(a+b)
+    eighteen_sq = _mul(c(18), delta_sq_sum)               # 18(a^2+b^2)
+
+    w_term = _add(_sub(_x4(w3), eighteen_ab), c(81))
+    w_term = _mul(w_term, w3)
+    t1 = _add(_sub(eighteen_sq, eightyone_ab), c(83))
+    w_term = _mul(_add(w_term, t1), w3)  # delta_sum in the reference
+
+    qc_term = _sub(w4w, _x4(w4))
+    three_c = _add(_dbl2(qc_term), qc_term)
+    nine_c = _add(_dbl2(three_c), three_c)
+    t3 = _mul(_sub(nine_c, three_ab), qc)
+    t2 = _sub(_add(three_c, three_ab), _dbl2(w_term))
+    t2 = _add(t2, t3)
+    identity = _mul(_add(identity, t2), a(17))
+    logic = _mul(identity, qlogic)
+
+    total = _add(_add(perm, arith), _add(fb, _add(rng, logic)))
+    return _mul(total, vanish_scale)
+
+
+def turbo_quotient(wffts, sffts, zfft, qffts, l1fft, coset_pts, vanish_scale,
+                   alphas, beta, gamma, delta, n: int):
+    """TurboPlonk quotient evaluations over the 4n coset (``_turbo_terms``)."""
+    return _turbo_terms(wffts, sffts, zfft, qffts, l1fft, coset_pts,
+                        vanish_scale, alphas, beta, gamma, delta, n)
 
 
 def linear_combination(stack, scalars):

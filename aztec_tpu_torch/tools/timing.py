@@ -120,3 +120,19 @@ def device_ms(fn) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (REPLAYS * ITERS)
+
+
+def empty_launch_ms() -> float:
+    """``device_ms`` of one launch of a kernel that does nothing (one
+    block, ``csrc/field_ops.cu`` ``fk_empty``): the floor under the device
+    time of any launch, which a narrow kernel's chain of dependent products
+    adds to."""
+    from .. import native
+
+    lib = native.library("field_ops")
+
+    def launch():
+        native.check(lib.fk_empty(torch.cuda.current_stream().cuda_stream),
+                     "fk_empty")
+
+    return device_ms(launch)

@@ -51,6 +51,19 @@ read just after:
    mixed-added into the buckets, a barrier's MSMs batched) and the
    reference's (tail padded to a chunk, one MSM at a time), same bytes
    (timing only: its launches are not counted);
+5b. the Turbo path: the committed small TurboPlonk vectors (the JAX
+    package's proofs of tests/test_turbo.py's circuit, keccak and
+    unrolled, and of a 2^10-gate circuit with an in-circuit Pedersen
+    compression) proved on the card, byte for byte; K2 ``add_unsafe``,
+    ``proj_add_complete`` and K3 against their plain versions at the
+    Turbo barrier's widths (32 rows x 2^16, 32 x 4096 lanes); then, as a
+    path, aztec_tpu_torch/tools/turbo_circuit.py's 2^17-gate circuit
+    (every Turbo widget) checked by ``check_turbo``, keyed, and proved
+    four times with the keccak prover and four times unrolled, each proof
+    verified and a tamper rejected (set-up seconds, warm proof seconds and
+    launches by kernel printed); last, in a process of its own
+    (``--turbo-profile``), a warm Turbo proof under torch.profiler: kernel
+    time, idle share, the largest kernels;
 6. the MSM engine at full width: phase 3's MSM through
    ``msm(..., MSMConfig(c=16, block=64, bucket_block=64, glv=True))`` (the
    packed branch: K3 and K4 once a round) and through the staged rounds,
@@ -77,7 +90,8 @@ read just after:
     bound, then the card's name and power limit, then the result line.
 
 Exits 2 without a result when CUDA is missing or the package is not beside
-this script.
+this script.  The smoke imports nothing of JAX or of the JAX package and
+fails if it finds either loaded.
 
 ``python3 chip_smoke.py --redesigned`` runs phase 2's K1-K3 checks and
 the redesigned kernels' phase alone (their edge lanes and their times at
@@ -232,6 +246,17 @@ POW_EDGE_WIDTHS, POW_EDGE_EXPS = (1, 3, 1000, 1 << 16), (1 << 100, 0, 1)
 # exponents 2^64 and 2^192 at width 1: their times' difference over 128
 # is the latency of one lazy product, the chain's step
 POW_LATENCY_EXPS = (1 << 64, 1 << 192)
+# The narrow launches' chain floors: a width-1 to -24 launch is bound by
+# its chain of dependent Montgomery products, not by the card's rates.
+# name: (dependent product levels of one point, the product's form).  A
+# proj_dbl step: Y^2, YZ, Z^2 and XY, then four products of them (2); c2j:
+# Z^2 and XZ, then Y Z^2, in field.cuh's canonical form (2);
+# mixed_add_unsafe: Z1^2 and Y2 Z1; U2 and S2; H^2, r^2 and (Z1 + H)^2;
+# J = H I and V = X1 I; Y1 J and r (V - X3) (5).  The floor is the levels
+# times one product's latency (mont_pow's slope, lazy or canonical) plus
+# an empty launch's device time, each measured in the same run.
+CHAIN_LEVELS = {"proj_dbl": (2, "lazy"), "proj_to_jacobian": (2, "canonical"),
+                "mixed_add_unsafe": (5, "lazy")}
 # Montgomery products a thread of each redesigned kernel computes a point
 # (rake_packed_kernel: an entry; proj_add computes 3b by two more where its
 # NINE template argument is 0)
@@ -252,6 +277,12 @@ REDESIGNED_LIBS = ("group_ops", "rake", "bucket", "field_ops")
 # 2^17-point chunk, at the card's geometry (c = 16, GLV, K = 64).
 PROOF_BATCH = 3
 WINDOW = 16
+# The Turbo path's widest barrier commits four MSMs (the four wires, or the
+# four quotient pieces): 32 GLV rows.  The committed small Turbo vectors
+# it proves first, and the warm proofs a flavor it times.
+TURBO_BATCH = 4
+TURBO_VECTORS = ("turbo_drive", "unrolled_turbo_drive", "turbo_pedersen")
+TURBO_WARM = 3
 
 
 def log(msg: str) -> None:
@@ -1049,9 +1080,13 @@ def time_redesigned(rate: float) -> dict:
     width key "<w> chain"), against which it is held; first, the latency
     of one of its lazy products at width 1 (``POW_LATENCY_EXPS``), whose
     multiple by the ladder's length is the chain's floor at widths 1 and
-    3.  K5 runs at the small tier's B = 128, K = 32 and wider.  Returns
-    {name: {width: (ms, call_ms, bound_ms or None)}}, and the latency under
-    "mont_pow_product_latency_ms"."""
+    3.  K5 runs at the small tier's B = 128, K = 32 and wider.  Then the
+    canonical product's latency (the same slope on an element above p)
+    and an empty launch's device time give the narrow launches' chain
+    floors (CHAIN_LEVELS).  Returns {name: {width: (ms, call_ms, bound_ms
+    or None)}}, the latency under "mont_pow_product_latency_ms" and the
+    floors under "chain_floor_ms"."""
+    import numpy as np
     import torch
 
     from aztec_tpu_torch.curves import group
@@ -1155,6 +1190,24 @@ def time_redesigned(rate: float) -> dict:
         log(f"redesigned mont_pow: one lazy product's latency at width 1 "
             f"{lat * 1e3:.4f} us (e = 2^64: {t[0]:.5f} ms, e = 2^192: "
             f"{t[1]:.5f} ms)")
+        # the canonical product's: the ladder takes field.cuh's product
+        # for an element at or above p
+        big = limb.const(np.full(16, 0xFFFF), 2, "cuda").contiguous()
+        tc = [timing.device_ms(lambda e=e: fk.mont_pow(big, exp_bits(e), FQ))
+              for e in POW_LATENCY_EXPS]
+        lat_c = (tc[1] - tc[0]) / (POW_LATENCY_EXPS[1].bit_length()
+                                   - POW_LATENCY_EXPS[0].bit_length())
+        empty = timing.empty_launch_ms()
+        out["chain_floor_ms"] = {}
+        for name, (levels, form) in CHAIN_LEVELS.items():
+            floor = levels * (lat if form == "lazy" else lat_c) + empty
+            out["chain_floor_ms"][name] = floor
+            log(f"chain floor {name}: {levels} {form} product levels x "
+                f"{(lat if form == 'lazy' else lat_c) * 1e3:.4f} us + an "
+                f"empty launch {empty * 1e3:.4f} us = {floor * 1e3:.4f} us")
+        log(f"redesigned mont_pow: one canonical product's latency at width "
+            f"1 {lat_c * 1e3:.4f} us; an empty launch's device time "
+            f"{empty * 1e3:.4f} us")
     for name, widths in REDESIGNED_WIDTHS.items():
         for w in widths:
             for key, kern, plain, elems in calls(name, w):
@@ -1796,6 +1849,220 @@ def compare_msm_paths(c, reps: int = 10, device: str = "cuda") -> None:
         + json.dumps(secs))
 
 
+def turbo_vectors(device: str = "cuda") -> None:
+    """Phase 5b, first: the committed small Turbo vectors (the JAX
+    package's proofs under a counter rng, make_vectors.py) proved by the
+    port on the card, keccak and unrolled: proof bytes and VK commitments
+    equal, the port's verifier accepts.  The circuits come from
+    tests/torch_vectors/ (make_vectors.py, plonk_cases.py), which import no
+    JAX at import."""
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_vectors"))
+    import make_vectors as mv
+    import plonk_cases
+
+    mod = plonk_cases.port_classes(device)
+    composers = {}
+    for name in TURBO_VECTORS:
+        with open(os.path.join(mv.HERE, f"{name}.json")) as f:
+            rec = json.load(f)
+        build, seed = mv.CIRCUITS[name]
+        if build not in composers:      # one circuit, two flavors: one key
+            composers[build] = build(mod)
+        c = composers[build]
+        prover = mv.make_prover(c, name)
+        prover.rng = mv.counter_rng(seed)
+        proof = prover.construct_proof()
+        if proof.hex() != rec["proof"]:
+            raise AssertionError(f"{name}: the proof differs from the JAX "
+                                 "package's bytes")
+        vk = c.compute_verification_key()
+        want = {k: None if v is None else (int(v[0], 16), int(v[1], 16))
+                for k, v in rec["vk"].items()}
+        if vk.commitments != want:
+            raise AssertionError(f"{name}: VK differs from the JAX package's")
+        if not mv.make_verifier(c, name).verify_proof(proof):
+            raise AssertionError(f"{name}: the port's verifier rejects it")
+        log(f"turbo vector {name}: n={vk.n} proof of {len(proof)} bytes and "
+            f"{len(want)} VK commitments equal the JAX package's; verified")
+
+
+def check_turbo_barrier(rate: float) -> None:
+    """Phase 5b: K2 add_unsafe and proj_add_complete at the Turbo
+    barrier's width (TURBO_BATCH MSMs x 8 GLV rounds = 32 rows x 2^16
+    bucket lanes) and K3 at its chunk (32 rows x 4096 lanes, K = 64), each
+    against its plain version, bit for bit; device ms printed."""
+    import torch
+
+    from aztec_tpu_torch.curves import group
+    from aztec_tpu_torch.curves import group_kernels as gk
+    from aztec_tpu_torch.curves.group_ops import JacobianOps
+    from aztec_tpu_torch.curves.spec import BN254_G1
+    from aztec_tpu_torch.ff import FQ
+    from aztec_tpu_torch.msm import rake
+    from aztec_tpu_torch.tools import timing
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    b = BN254_G1.b
+    rows = TURBO_BATCH * 128 // WINDOW
+    wide = rows << WINDOW
+    P, Q = (tuple(random_field(gen, (wide,), dev, zero_lanes=(i == 2))
+                  for i in range(3)) for _ in range(2))
+    B = rows * (2 << 17) // RAKE_K
+    dig = torch.sort(torch.randint(0, 4, (RAKE_K, B), generator=gen,
+                                   device=dev), dim=0).values
+    Xa, Ya = (random_field(gen, (RAKE_K * B,), dev) for _ in range(2))
+    packed = JacobianOps(BN254_G1, dev).pack_affine((Xa, Ya))
+    for name, kern, plain, elems in (
+        ("add_unsafe", lambda: gk.add_unsafe(P, Q, FQ),
+         lambda: group.add_unsafe(P, Q, FQ), wide),
+        ("proj_add_complete", lambda: gk.proj_add_complete(P, Q, FQ, b),
+         lambda: group.proj_add_complete(P, Q, FQ, b), wide),
+        ("rake_scan_packed",
+         lambda: rake.rake_scan_packed(dig, packed, B, RAKE_K, FQ),
+         lambda: rake.rake_scan_packed_plain(dig, packed, B, RAKE_K, FQ),
+         B * RAKE_K),
+    ):
+        err = max_abs_err(kern(), plain())
+        ms = timing.device_ms(kern)
+        nbytes = (B * RAKE_K * (4 + 4 * PLANE_BYTES)
+                  if name == "rake_scan_packed" else None)
+        bnd, by = bound_ms(name, elems, rate, nbytes=nbytes)
+        log(f"turbo barrier {name}: {rows} rows, {elems} elements "
+            f"max_abs_err={err} ms={ms:.4f} bound_ms={bnd:.4f} ({by})")
+        if err:
+            raise AssertionError(f"{name} differs at the Turbo barrier")
+        torch.cuda.empty_cache()
+
+
+def build_turbo(log2n: int = 17, device: str = "cuda"):
+    """aztec_tpu_torch/tools/turbo_circuit.py's circuit (a depth-32 Merkle
+    path of in-circuit Pedersen compressions, range and logic constraints,
+    bit extraction, a big mul gate, a mul chain) at 2^log2n gates."""
+    import functools
+
+    from aztec_tpu_torch.plonk.composer import MulTriple, TurboComposer
+    from aztec_tpu_torch.stdlib import pedersen_circuit
+    from aztec_tpu_torch.tools import turbo_circuit
+
+    return turbo_circuit.build(functools.partial(TurboComposer, device=device),
+                               pedersen_circuit, MulTriple, log2n=log2n)
+
+
+def turbo_path(log2n: int = 17, device: str = "cuda"):
+    """Phase 5b: the Turbo circuit at 2^log2n gates built, checked by
+    ``circuit_check.check_turbo`` (no violated identity, every selector
+    non-zero on some row), keyed, and proved 1 + TURBO_WARM times with
+    ``create_prover`` (keccak) and with ``create_unrolled_prover``; every
+    proof verified by the matching port verifier, a tampered one of each
+    flavor rejected.  Returns {flavor: launches of its last warm proof}."""
+    import torch
+
+    from aztec_tpu_torch.ff import field_kernels as fk
+    from aztec_tpu_torch.plonk import circuit_check
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    c = build_turbo(log2n, device)
+    t_circuit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bad = circuit_check.check_turbo(c)
+    t_check = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"turbo circuit: {len(bad)} violated identities, "
+                             f"first {bad[:5]}")
+    used = {s: sum(1 for v in getattr(c, s) if v) for s in c.SELECTORS}
+    if not all(used.values()):
+        raise AssertionError(f"turbo circuit: selectors never set: {used}")
+    log(f"turbo 2^{log2n}: {c.n} gates, check_turbo clean, rows a selector "
+        f"is non-zero on: {json.dumps(used)}")
+    t0 = time.perf_counter()
+    c.compute_proving_key()
+    sync()
+    t_key = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vk = c.compute_verification_key()
+    t_vk = time.perf_counter() - t0
+    log(f"turbo 2^{log2n} set-up: circuit_s={t_circuit:.2f} "
+        f"check_s={t_check:.2f} key_s={t_key:.2f} vk_s={t_vk:.2f} "
+        f"({len(vk.commitments)} VK commitments)")
+    launches = {}
+    for flavor, make_prover, make_verifier in (
+            ("keccak", c.create_prover, c.create_verifier),
+            ("unrolled", c.create_unrolled_prover,
+             c.create_unrolled_verifier)):
+        verifier = make_verifier()
+        secs = []
+        for _ in range(1 + TURBO_WARM):
+            prover = make_prover()
+            before = dict(fk.LAUNCHES)
+            sync()
+            t0 = time.perf_counter()
+            proof = prover.construct_proof()
+            sync()
+            secs.append(time.perf_counter() - t0)
+            launches[flavor] = {k: v - before.get(k, 0)
+                                for k, v in fk.LAUNCHES.items()
+                                if v - before.get(k, 0)}
+            if not verifier.verify_proof(proof):
+                raise AssertionError(f"turbo 2^{log2n} {flavor}: the port's "
+                                     "verifier rejects the proof")
+        bad = bytearray(proof)
+        bad[len(bad) // 2] ^= 1
+        if verifier.verify_proof(bytes(bad)):
+            raise AssertionError(f"turbo 2^{log2n} {flavor}: a tampered "
+                                 "proof verified")
+        log(f"turbo 2^{log2n} {flavor}: {1 + TURBO_WARM} proofs of "
+            f"{len(proof)} bytes verify, tamper rejected; prove_cold_s="
+            f"{secs[0]:.3f} prove_warm_s={json.dumps([round(x, 4) for x in secs[1:]])}")
+        log(f"turbo 2^{log2n} {flavor}: launches per warm proof "
+            f"{sum(launches[flavor].values())}: "
+            f"{json.dumps(launches[flavor], sort_keys=True)}")
+    return launches
+
+
+def turbo_profile(log2n: int = 17) -> int:
+    """``--turbo-profile``, run by phase 5b in a process of its own (a
+    profiled figure is taken in a fresh process: ROADMAP C5): the Turbo
+    circuit keyed, one warm-up proof, one unprofiled warm proof (its wall
+    seconds), then one under torch.profiler: kernels, kernel ms, the
+    largest kernels, the idle share of the unprofiled proof."""
+    import torch
+
+    c = build_turbo(log2n)
+    c.create_prover().construct_proof()
+    prover = c.create_prover()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prover.construct_proof()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    busy_ms, by_name = profile_proof(c)
+    log(f"turbo profile: unprofiled warm proof {warm:.3f} s, kernel time "
+        f"{busy_ms:.1f} ms, device idle share {1 - busy_ms / (warm * 1e3):.3f}")
+    log(json.dumps({"turbo_profile_ms_by_kernel": by_name}))
+    return 0
+
+
+def profile_turbo_fresh() -> None:
+    """Phase 5b, last: ``--turbo-profile`` in a process of its own, its
+    lines relayed; it fails the smoke if it fails."""
+    import subprocess
+
+    import torch
+
+    torch.cuda.empty_cache()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--turbo-profile"], capture_output=True, text=True,
+                         timeout=900)
+    for line in out.stdout.splitlines():
+        log(f"  {line}")
+    if out.returncode != 0:
+        raise AssertionError(f"--turbo-profile failed ({out.returncode}): "
+                             f"{out.stderr[-2000:]}")
+
+
 def run(argv=()) -> int:
     """The smoke; with ``--redesigned``, only phase 2's checks of K1-K3 and
     the redesigned kernels' phase (registers, spills, SASS, edge lanes, the
@@ -1803,6 +2070,7 @@ def run(argv=()) -> int:
     last the lazy kernels on unreduced lanes: run beside another commit's
     package, it compares that commit's kernels on the same card."""
     redesigned_only = "--redesigned" in argv
+    turbo_profile_only = "--turbo-profile" in argv
     try:
         import torch
     except ImportError:
@@ -1821,6 +2089,9 @@ def run(argv=()) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if turbo_profile_only:
+        native.build()
+        return turbo_profile()
 
     from aztec_tpu_torch.tools import timing
 
@@ -1886,6 +2157,12 @@ def run(argv=()) -> int:
     c, per_proof, cost = path("proof_2pow17", pr1, main_path)
     compare_msm_paths(c)
     del c
+    turbo_vectors()
+    check_turbo_barrier(rate)
+    turbo_launches = path("proof_turbo_2pow17",
+                          [k for k in pr1 if k != "mixed_add_unsafe"],
+                          turbo_path)
+    profile_turbo_fresh()
     path("msm_engine_2pow20", ["rake_scan_packed", "bucket_phase"],
          check_engine, case)
     del case
@@ -1910,7 +2187,13 @@ def run(argv=()) -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "launches_per_2pow17_proof":
                 per_proof.get(name, 0),
+            "launches_per_2pow17_turbo_proof": {
+                flavor: counts.get(name, 0)
+                for flavor, counts in turbo_launches.items()},
         })
+        floor = redesigned["times"].get("chain_floor_ms", {}).get(name)
+        if floor is not None:
+            kernels[-1]["chain_floor_ms"] = floor
         if name in redesigned["times"]:
             times = redesigned["times"][name].items()
             kernels[-1]["ms_at_widths"] = {w: t[0] for w, t in times}
@@ -1921,6 +2204,9 @@ def run(argv=()) -> int:
                if k["launches"] == 0 and k["name"] not in NO_PATH]
     path_ranking(kernels)
     log(json.dumps({"kernels": kernels}))
+    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "aztec_tpu")]
+    if leaked:
+        raise AssertionError(f"the smoke imported {leaked[:5]}")
     if missing:
         log(f"kernels never launched on any path: {missing}")
         return 1

@@ -1,6 +1,7 @@
 """Whole-proof checks of the port (aztec_tpu_torch) against vectors that
 the JAX package (aztec_tpu) produced with make_vectors.py.  Shared by
-tests/test_torch_plonk.py and tests/test_torch_plonk_chain.py."""
+tests/test_torch_plonk.py, tests/test_torch_plonk_chain.py and
+tests/test_torch_turbo.py."""
 
 from __future__ import annotations
 
@@ -15,29 +16,51 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def load_vector(name: str):
+    """(the JSON record, the key planes or {} where none were written)."""
     with open(os.path.join(HERE, f"{name}.json")) as f:
         rec = json.load(f)
-    with np.load(os.path.join(HERE, f"{name}.npz")) as d:
+    path = os.path.join(HERE, f"{name}.npz")
+    if not os.path.exists(path):
+        return rec, {}
+    with np.load(path) as d:
         planes = {k: d[k] for k in d.files}
     return rec, planes
 
 
+# vectors of one circuit proved two ways: the port proves them on one
+# composer (one key, one VK)
+SAME_CIRCUIT = {"unrolled_turbo_drive": "turbo_drive"}
+# aztec_tpu's flavor (plonk.flavors.FLAVORS) of each vector's proof
+FLAVOR = {"turbo_drive": "turbo", "unrolled_turbo_drive": "unrolled_turbo",
+          "turbo_pedersen": "turbo"}
+
+
+def port_classes(device: str = "cpu") -> SimpleNamespace:
+    """The port's classes, as make_vectors' circuit functions take them."""
+    from aztec_tpu_torch.plonk import composer as comp
+    from aztec_tpu_torch.stdlib import pedersen_circuit
+
+    return SimpleNamespace(
+        StandardComposer=functools.partial(comp.StandardComposer,
+                                           device=device),
+        TurboComposer=functools.partial(comp.TurboComposer, device=device),
+        pedersen=pedersen_circuit,
+        MulTriple=comp.MulTriple, AddTriple=comp.AddTriple)
+
+
 @functools.lru_cache(maxsize=None)
 def prove(name: str):
-    """The port's composer, proof and VK for a vector's circuit, on the CPU,
-    under the vector's counter rng."""
-    from aztec_tpu_torch.plonk import composer as comp
-    from make_vectors import CIRCUITS, counter_rng
+    """The port's composer, proof, VK and prover for a vector's circuit, on
+    the CPU, under the vector's counter rng."""
+    from make_vectors import CIRCUITS, counter_rng, make_prover
 
-    mod = SimpleNamespace(
-        StandardComposer=functools.partial(comp.StandardComposer, device="cpu"),
-        MulTriple=comp.MulTriple, AddTriple=comp.AddTriple)
     build, seed = CIRCUITS[name]
-    c = build(mod)
-    prover = c.create_prover()
+    c = prove(SAME_CIRCUIT[name])[0] if name in SAME_CIRCUIT else build(
+        port_classes())
+    prover = make_prover(c, name)
     prover.rng = counter_rng(seed)
     proof = prover.construct_proof()
-    return c, proof, c.compute_verification_key()
+    return c, proof, c.compute_verification_key(), prover
 
 
 def vk_ints(rec):
@@ -45,17 +68,20 @@ def vk_ints(rec):
             for k, v in rec["vk"].items()}
 
 
-def reference_verifier(vk):
-    """aztec_tpu's Verifier around a VerificationKey holding the port's
-    VK values (no JAX MSM is compiled)."""
-    from aztec_tpu.plonk.flavors import StandardFlavor
+def reference_verifier(vk, name: str = "standard_drive1"):
+    """aztec_tpu's Verifier of the vector's flavor around a
+    VerificationKey holding the port's VK values (no JAX MSM is
+    compiled)."""
+    from aztec_tpu.plonk.flavors import FLAVORS
     from aztec_tpu.plonk.proving_key import VerificationKey
     from aztec_tpu.plonk.verifier import Verifier
 
+    flavor = FLAVORS[FLAVOR.get(name, "standard")]
     key = VerificationKey(n=vk.n, num_public_inputs=vk.num_public_inputs,
                           commitments=dict(vk.commitments),
-                          domain_root=vk.domain_root, g2_x=vk.g2_x)
-    return Verifier(key, StandardFlavor)
+                          domain_root=vk.domain_root, g2_x=vk.g2_x,
+                          settings=flavor.settings)
+    return Verifier(key, flavor)
 
 
 def tampered(proof: bytes) -> bytes:
@@ -71,11 +97,12 @@ def key_planes_equal(name: str) -> None:
 
     from aztec_tpu_torch import interop
 
-    c, _, _ = prove(name)
+    c = prove(name)[0]
     rec, planes = load_vector(name)
     pk = c.compute_proving_key()
     got = interop.proving_key_from_numpy(rec["n"], pk.num_public_inputs,
-                                         planes, pk.srs, device="cpu")
+                                         planes, pk.srs, pk.settings,
+                                         device="cpu")
     for kind in ("selectors", "sigmas"):
         mine, theirs = getattr(pk, kind), getattr(got, kind)
         assert sorted(mine) == sorted(theirs)
