@@ -1,4 +1,4 @@
-"""PyTorch + CUDA port of aztec_tpu (Standard PLONK on an NVIDIA H100).
+"""PyTorch + CUDA port of aztec_tpu (PLONK proving on an NVIDIA H100).
 
 Same subpackages and module names as ``aztec_tpu``; tensors keep the
 reference's (16, n) 16-bit-limb Montgomery planes (stored as int32).  Entry

@@ -1,7 +1,10 @@
 """Pedersen hash over Grumpkin, on the host.
 
-Port of aztec_tpu/crypto/pedersen.py, line for line, in Python integers
-(the reference's own host code; nothing here touches a device).  It is a
+Port of aztec_tpu/crypto/pedersen.py in Python integers (the reference's
+own host code; nothing here touches a device), line for line but for two
+things that give the same points faster: the generator stream is extended
+once, and the ladder walks and ``g_mul`` accumulate in Jacobian
+coordinates with one inversion at the end.  It is a
 structural re-implementation of barretenberg's crypto/pedersen/pedersen.cpp:
 deterministic generators via hash_to_curve(seed) (ecc/groups/
 affine_element_impl.hpp:117-125), per-generator fixed-base ladders of
@@ -65,6 +68,50 @@ def g_dbl(a):
     return (x3, (lam * (x - x3) - y) % P)
 
 
+# ---- Jacobian accumulation (one inversion at the end of a walk) -------------
+# (X, Y, Z) stands for (X / Z^2, Y / Z^3); None = infinity.  The walks below
+# give the same affine points as the chains of g_add / g_dbl they replace.
+
+
+def _j_dbl(a):
+    if a is None or a[1] == 0:
+        return None
+    X, Y, Z = a
+    YY = Y * Y % P
+    S = 4 * X * YY % P
+    M = 3 * X * X % P
+    X3 = (M * M - 2 * S) % P
+    return (X3, (M * (S - X3) - 8 * YY * YY) % P, 2 * Y * Z % P)
+
+
+def _j_add(a, b):
+    """Jacobian a + affine b."""
+    if b is None:
+        return a
+    if a is None:
+        return (b[0], b[1], 1)
+    X1, Y1, Z1 = a
+    ZZ = Z1 * Z1 % P
+    H = (b[0] * ZZ - X1) % P
+    r = (b[1] * ZZ * Z1 - Y1) % P
+    if H == 0:
+        return _j_dbl(a) if r == 0 else None
+    HH = H * H % P
+    HHH = H * HH % P
+    V = X1 * HH % P
+    X3 = (r * r - HHH - 2 * V) % P
+    return (X3, (r * (V - X3) - Y1 * HHH) % P, Z1 * H % P)
+
+
+def _affine(a):
+    if a is None:
+        return None
+    X, Y, Z = a
+    zi = pow(Z, -1, P)
+    zi2 = zi * zi % P
+    return (X * zi2 % P, Y * zi2 * zi % P)
+
+
 def g_neg(a):
     if a is None:
         return None
@@ -123,18 +170,21 @@ def hash_to_curve(seed: int):
     return (x, y)
 
 
-@functools.lru_cache(maxsize=None)
+_GENERATORS: List[Tuple[int, int]] = []    # the stream found so far
+_SEED = [0]                                 # the last seed tried
+
+
 def get_generator(index: int):
-    """Deterministic generator stream (ref: group.hpp:42-57)."""
-    count = -1
-    seed = 0
-    while True:
-        seed += 1
-        cand = hash_to_curve(seed)
+    """Deterministic generator stream (ref: group.hpp:42-57): the index-th
+    point of hash_to_curve(1), hash_to_curve(2), ... that is on the curve.
+    The stream is extended once, not searched again from seed 1 for every
+    index."""
+    while len(_GENERATORS) <= index:
+        _SEED[0] += 1
+        cand = hash_to_curve(_SEED[0])
         if cand is not None and g_on_curve(cand):
-            count += 1
-            if count == index:
-                return cand
+            _GENERATORS.append(cand)
+    return _GENERATORS[index]
 
 
 @functools.lru_cache(maxsize=None)
@@ -238,13 +288,13 @@ def fixed_wnaf(scalar: int, num_bits: int, wnaf_bits: int = 2) -> Tuple[List[int
 
 
 def g_mul(k: int, a):
+    """k * a, most significant bit first."""
     acc = None
-    while k:
-        if k & 1:
-            acc = g_add(acc, a)
-        a = g_dbl(a)
-        k >>= 1
-    return acc
+    for bit in bin(k)[2:] if k > 0 else ():
+        acc = _j_dbl(acc)
+        if bit == "1":
+            acc = _j_add(acc, a)
+    return _affine(acc)
 
 
 def num_quads_for(num_bits: int) -> int:
@@ -260,14 +310,14 @@ def _ladder_mul(value: int, num_bits: int, full_ladder, skew_point):
     ladder = full_ladder[QUAD_LENGTH - n - 1 :]
     base = value if (value & 1) else (value - 2) % P
     wnaf, skew = fixed_wnaf(base, (n << 1) + 1, 2)
-    acc = ladder[0][0]
+    acc = _j_add(None, ladder[0][0])
     if skew:
-        acc = g_add(acc, skew_point)
+        acc = _j_add(acc, skew_point)
     for i in range(n):
         entry = wnaf[i + 1]
         pt = ladder[i + 1][1] if (entry & 0xFFFFFF) == 1 else ladder[i + 1][0]
-        acc = g_add(acc, g_neg(pt) if (entry >> 31) & 1 else pt)
-    return acc
+        acc = _j_add(acc, g_neg(pt) if (entry >> 31) & 1 else pt)
+    return _affine(acc)
 
 
 def fixed_base_scalar_mul(value: int, num_bits: int, generator_index: int = 0):
@@ -289,19 +339,16 @@ def hash_single(value: int, hash_index: int):
     base = value if (value & 1) else (value - 2) % P
     wnaf, skew = fixed_wnaf(base, 2 * NUM_QUADS + 1, 2)
 
-    acc = ladder[0][0]
+    acc = _j_add(None, ladder[0][0])
     if skew:
-        acc = g_add(acc, get_generator(hash_index * 2 + 1))
+        acc = _j_add(acc, get_generator(hash_index * 2 + 1))
     for i in range(NUM_QUADS):
         entry = wnaf[i + 1]
         pt = ladder[i + 1][1] if (entry & 0xFFFFFF) == 1 else ladder[i + 1][0]
-        if (entry >> 31) & 1:
-            acc = g_add(acc, g_neg(pt))
-        else:
-            acc = g_add(acc, pt)
+        acc = _j_add(acc, g_neg(pt) if (entry >> 31) & 1 else pt)
     if value == 0:
         return None
-    return acc
+    return _affine(acc)
 
 
 def compress_native(left: int, right: int, hash_index: int = 0) -> int:

@@ -1,8 +1,13 @@
 """In-circuit standard library (ref: stdlib/): the witness wrappers
 ``FieldT`` and ``BoolT`` (lazy constant composition, gates only where two
 witnesses meet) and the in-circuit Pedersen hash over the Turbo fixed-base
-gates (``pedersen_circuit``).  Port of aztec_tpu/stdlib's ``field_t`` and
-``pedersen_circuit``; the rest of that package is not ported yet.
+gates (``pedersen_circuit``), and what the rollup's transaction circuits
+use: ``uint``/``uint32``, ``byte_array``, the in-circuit Blake2s, the
+recursion transcript, native-group points, Schnorr verification and Merkle
+membership.  Port of aztec_tpu/stdlib/; not ported yet: ``bigfield``,
+``biggroup`` and ``recursion_verifier`` (the rollup circuits' recursion),
+``bit_array``, ``packed_byte_array``, ``sha256_circuit`` and
+``mimc_circuit``.
 """
 
 from .field_t import FieldT, BoolT, witness, constant, public_witness  # noqa: F401

@@ -64,6 +64,28 @@ read just after:
     launches by kernel printed); last, in a process of its own
     (``--turbo-profile``), a warm Turbo proof under torch.profiler: kernel
     time, idle share, the largest kernels;
+5c. the rollup's transaction proofs: the committed ``join_split_d3``
+    vector (the unrolled proof of the depth-3 join-split of
+    tests/test_join_split.py, 2^16 gates, 14 public inputs; written by the
+    port on the card, its VK held on the CPU to the JAX package's circuit
+    and its proof to the JAX package's verifier) proved again, byte for
+    byte; then, as paths, the join-split at the production
+    data-tree depth 32 (two real input notes in a ``WorldState`` sparse
+    tree, 2^17 gates) built, its 14 public inputs held against the tx's
+    native values, checked by ``check_turbo``, keyed and proved five times
+    unrolled, each proof verified and a tamper rejected (set-up seconds by
+    span, warm proof seconds, launches by kernel printed), then once under
+    torch.profiler (kernel time, the device's idle share), and the account
+    circuit with a depth-32 path, proved once and verified; last the proof
+    worker as a subprocess (``python -u -m
+    aztec_tpu_torch.serving.proof_worker``, its fixtures in a fresh
+    temporary directory): the ready byte, demo proofs 0x101 and 0x100 at
+    2^10 gates verified, 0x202 failed, the join-split and account VKs
+    (0x200, 0x201) whose stored padding proofs verify, an id-0 frame failed
+    with the next request still served, an unknown id failed and the worker
+    exiting 0, each request's seconds; its imports (``-X importtime``) hold
+    neither JAX nor the JAX package; then the HTTP server over its own
+    worker: GET /status and POST /create-proof;
 6. the MSM engine at full width: phase 3's MSM through
    ``msm(..., MSMConfig(c=16, block=64, bucket_block=64, glv=True))`` (the
    packed branch: K3 and K4 once a round) and through the staged rounds,
@@ -86,8 +108,9 @@ read just after:
 11. the redesign rankings (each kernel's device ms in the profiled warm
     2^17 proof less the bound of the elements it ran over; each kernel's
     launches over the paths times its device ms less its bound), a JSON
-    line with every kernel's launches summed over the paths, times and
-    bound, then the card's name and power limit, then the result line.
+    line with every kernel's launches summed over the paths, times, bound
+    and launches in a warm join-split proof, then the card's name and power
+    limit, then the result line.
 
 Exits 2 without a result when CUDA is missing or the package is not beside
 this script.  The smoke imports nothing of JAX or of the JAX package and
@@ -283,6 +306,12 @@ WINDOW = 16
 TURBO_BATCH = 4
 TURBO_VECTORS = ("turbo_drive", "unrolled_turbo_drive", "turbo_pedersen")
 TURBO_WARM = 3
+# Phase 5c: the rollup's join-split at the production data-tree depth
+# (rollup/constants.py: 2^17 gates), its warm unrolled proofs, the account
+# circuit at the same depth, and the proof worker's demo circuits' size.
+JOIN_SPLIT_DEPTH = 32
+JOIN_SPLIT_WARM = 4
+WORKER_GATES = 1 << 10
 
 
 def log(msg: str) -> None:
@@ -1655,8 +1684,9 @@ def build_chain(log2n: int, device: str = "cuda"):
     return c
 
 
-def profile_proof(c):
-    """One more warm proof under torch.profiler: device time by kernel.
+def profile_proof(c, make_prover=None):
+    """One more warm proof (``make_prover()``, by default the composer's
+    ``create_prover``) under torch.profiler: device time by kernel.
     Returns (the summed kernel milliseconds, {port kernel: device ms}),
     (0, {}) if the profiler saw none."""
     import re
@@ -1665,7 +1695,7 @@ def profile_proof(c):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    prover = c.create_prover()
+    prover = (make_prover or c.create_prover)()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1849,11 +1879,14 @@ def compare_msm_paths(c, reps: int = 10, device: str = "cuda") -> None:
         + json.dumps(secs))
 
 
-def turbo_vectors(device: str = "cuda") -> None:
+def turbo_vectors(device: str = "cuda", names=TURBO_VECTORS) -> None:
     """Phase 5b, first: the committed small Turbo vectors (the JAX
     package's proofs under a counter rng, make_vectors.py) proved by the
     port on the card, keccak and unrolled: proof bytes and VK commitments
-    equal, the port's verifier accepts.  The circuits come from
+    equal, the port's verifier accepts.  Phase 5c runs it on
+    ``join_split_d3``, whose record the port wrote on the card
+    (make_vectors.py ``CARD_ONLY``; ``plonk_cases.load_vector`` refuses
+    such a record for any other name).  The circuits come from
     tests/torch_vectors/ (make_vectors.py, plonk_cases.py), which import no
     JAX at import."""
     sys.path.insert(0, os.path.join(ROOT, "tests", "torch_vectors"))
@@ -1862,9 +1895,9 @@ def turbo_vectors(device: str = "cuda") -> None:
 
     mod = plonk_cases.port_classes(device)
     composers = {}
-    for name in TURBO_VECTORS:
-        with open(os.path.join(mv.HERE, f"{name}.json")) as f:
-            rec = json.load(f)
+    for name in names:
+        rec, _ = plonk_cases.load_vector(name)
+        producer = rec.get("producer", mv.REFERENCE)
         build, seed = mv.CIRCUITS[name]
         if build not in composers:      # one circuit, two flavors: one key
             composers[build] = build(mod)
@@ -1873,17 +1906,17 @@ def turbo_vectors(device: str = "cuda") -> None:
         prover.rng = mv.counter_rng(seed)
         proof = prover.construct_proof()
         if proof.hex() != rec["proof"]:
-            raise AssertionError(f"{name}: the proof differs from the JAX "
-                                 "package's bytes")
+            raise AssertionError(f"{name}: the proof differs from the "
+                                 f"bytes of {producer}'s vector")
         vk = c.compute_verification_key()
-        want = {k: None if v is None else (int(v[0], 16), int(v[1], 16))
-                for k, v in rec["vk"].items()}
+        want = plonk_cases.vk_ints(rec)
         if vk.commitments != want:
-            raise AssertionError(f"{name}: VK differs from the JAX package's")
+            raise AssertionError(f"{name}: VK differs from the vector's")
         if not mv.make_verifier(c, name).verify_proof(proof):
             raise AssertionError(f"{name}: the port's verifier rejects it")
         log(f"turbo vector {name}: n={vk.n} proof of {len(proof)} bytes and "
-            f"{len(want)} VK commitments equal the JAX package's; verified")
+            f"{len(want)} VK commitments equal {producer}'s vector; "
+            "verified")
 
 
 def check_turbo_barrier(rate: float) -> None:
@@ -1950,6 +1983,75 @@ def build_turbo(log2n: int = 17, device: str = "cuda"):
                                pedersen_circuit, MulTriple, log2n=log2n)
 
 
+def keyed_circuit(label: str, build, sync):
+    """Build a Turbo circuit with ``build()`` (returning the composer),
+    check it with ``check_turbo`` and key it; prints the set-up spans."""
+    from aztec_tpu_torch.plonk import circuit_check
+
+    spans = {}
+    t0 = time.perf_counter()
+    c = build()
+    spans["circuit_s"] = time.perf_counter() - t0
+    gates = c.n
+    if c.failed:
+        raise AssertionError(f"{label}: the circuit failed: {c.err}")
+    t0 = time.perf_counter()
+    bad = circuit_check.check_turbo(c)
+    spans["check_s"] = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} violated identities, "
+                             f"first {bad[:5]}")
+    t0 = time.perf_counter()
+    c.compute_proving_key()
+    sync()
+    spans["key_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vk = c.compute_verification_key()
+    spans["vk_s"] = time.perf_counter() - t0
+    log(f"{label}: {gates} gates, subgroup {vk.n}, {vk.num_public_inputs} "
+        f"public inputs, {len(vk.commitments)} VK commitments, check_turbo "
+        "clean; set-up " + " ".join(f"{k}={v:.2f}" for k, v in spans.items()))
+    return c
+
+
+def prove(label: str, c, proofs: int, sync, flavor: str = "unrolled"):
+    """``proofs`` proofs of the keyed composer ``c`` with the port's
+    ``flavor`` prover ("keccak": ``create_prover``, "unrolled":
+    ``create_unrolled_prover``), each verified by the matching port
+    verifier, then a tamper of the last rejected; prints the cold and warm
+    seconds and returns the launches of the last proof by kernel and the
+    seconds of each proof."""
+    from aztec_tpu_torch.ff import field_kernels as fk
+
+    make_prover, verifier = (
+        (c.create_prover, c.create_verifier()) if flavor == "keccak"
+        else (c.create_unrolled_prover, c.create_unrolled_verifier()))
+    secs = []
+    for _ in range(proofs):
+        prover = make_prover()
+        before = dict(fk.LAUNCHES)
+        sync()
+        t0 = time.perf_counter()
+        proof = prover.construct_proof()
+        sync()
+        secs.append(time.perf_counter() - t0)
+        launches = {k: v - before.get(k, 0) for k, v in fk.LAUNCHES.items()
+                    if v - before.get(k, 0)}
+        if not verifier.verify_proof(proof):
+            raise AssertionError(f"{label} {flavor}: the port's verifier "
+                                 "rejects the proof")
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    if verifier.verify_proof(bytes(bad)):
+        raise AssertionError(f"{label} {flavor}: a tampered proof verified")
+    log(f"{label} {flavor}: {proofs} proofs of {len(proof)} bytes verify, "
+        f"tamper rejected; prove_cold_s={secs[0]:.3f} prove_warm_s="
+        f"{json.dumps([round(x, 4) for x in secs[1:]])}")
+    log(f"{label} {flavor}: launches per proof {sum(launches.values())}: "
+        f"{json.dumps(launches, sort_keys=True)}")
+    return launches, secs
+
+
 def turbo_path(log2n: int = 17, device: str = "cuda"):
     """Phase 5b: the Turbo circuit at 2^log2n gates built, checked by
     ``circuit_check.check_turbo`` (no violated identity, every selector
@@ -1959,67 +2061,15 @@ def turbo_path(log2n: int = 17, device: str = "cuda"):
     flavor rejected.  Returns {flavor: launches of its last warm proof}."""
     import torch
 
-    from aztec_tpu_torch.ff import field_kernels as fk
-    from aztec_tpu_torch.plonk import circuit_check
-
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    t0 = time.perf_counter()
-    c = build_turbo(log2n, device)
-    t_circuit = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    bad = circuit_check.check_turbo(c)
-    t_check = time.perf_counter() - t0
-    if bad:
-        raise AssertionError(f"turbo circuit: {len(bad)} violated identities, "
-                             f"first {bad[:5]}")
+    label = f"turbo 2^{log2n}"
+    c = keyed_circuit(label, lambda: build_turbo(log2n, device), sync)
     used = {s: sum(1 for v in getattr(c, s) if v) for s in c.SELECTORS}
     if not all(used.values()):
-        raise AssertionError(f"turbo circuit: selectors never set: {used}")
-    log(f"turbo 2^{log2n}: {c.n} gates, check_turbo clean, rows a selector "
-        f"is non-zero on: {json.dumps(used)}")
-    t0 = time.perf_counter()
-    c.compute_proving_key()
-    sync()
-    t_key = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    vk = c.compute_verification_key()
-    t_vk = time.perf_counter() - t0
-    log(f"turbo 2^{log2n} set-up: circuit_s={t_circuit:.2f} "
-        f"check_s={t_check:.2f} key_s={t_key:.2f} vk_s={t_vk:.2f} "
-        f"({len(vk.commitments)} VK commitments)")
-    launches = {}
-    for flavor, make_prover, make_verifier in (
-            ("keccak", c.create_prover, c.create_verifier),
-            ("unrolled", c.create_unrolled_prover,
-             c.create_unrolled_verifier)):
-        verifier = make_verifier()
-        secs = []
-        for _ in range(1 + TURBO_WARM):
-            prover = make_prover()
-            before = dict(fk.LAUNCHES)
-            sync()
-            t0 = time.perf_counter()
-            proof = prover.construct_proof()
-            sync()
-            secs.append(time.perf_counter() - t0)
-            launches[flavor] = {k: v - before.get(k, 0)
-                                for k, v in fk.LAUNCHES.items()
-                                if v - before.get(k, 0)}
-            if not verifier.verify_proof(proof):
-                raise AssertionError(f"turbo 2^{log2n} {flavor}: the port's "
-                                     "verifier rejects the proof")
-        bad = bytearray(proof)
-        bad[len(bad) // 2] ^= 1
-        if verifier.verify_proof(bytes(bad)):
-            raise AssertionError(f"turbo 2^{log2n} {flavor}: a tampered "
-                                 "proof verified")
-        log(f"turbo 2^{log2n} {flavor}: {1 + TURBO_WARM} proofs of "
-            f"{len(proof)} bytes verify, tamper rejected; prove_cold_s="
-            f"{secs[0]:.3f} prove_warm_s={json.dumps([round(x, 4) for x in secs[1:]])}")
-        log(f"turbo 2^{log2n} {flavor}: launches per warm proof "
-            f"{sum(launches[flavor].values())}: "
-            f"{json.dumps(launches[flavor], sort_keys=True)}")
-    return launches
+        raise AssertionError(f"{label}: selectors never set: {used}")
+    log(f"{label}: rows a selector is non-zero on: {json.dumps(used)}")
+    return {flavor: prove(label, c, 1 + TURBO_WARM, sync, flavor)[0]
+            for flavor in ("keccak", "unrolled")}
 
 
 def turbo_profile(log2n: int = 17) -> int:
@@ -2061,6 +2111,351 @@ def profile_turbo_fresh() -> None:
     if out.returncode != 0:
         raise AssertionError(f"--turbo-profile failed ({out.returncode}): "
                              f"{out.stderr[-2000:]}")
+
+
+def join_split_tx(depth: int = JOIN_SPLIT_DEPTH):
+    """A join-split tx at the production data-tree depth: two real input
+    notes in a ``WorldState`` data tree (a ``SparseTree``), two output
+    notes, a public output of 30 and a fee of 10, signed with the account
+    key (nonce 0).  Host Python: the world state's Pedersen hashes, the
+    note commitments and the Schnorr signature."""
+    from aztec_tpu_torch.crypto import pedersen as pd
+    from aztec_tpu_torch.rollup import notes_native as nn
+    from aztec_tpu_torch.rollup.join_split import JoinSplitTx, sign_tx
+    from aztec_tpu_torch.rollup.world_state import WorldState
+
+    priv = 0x0B0B + 7
+    pub = pd.fixed_base_scalar_mul_g1(priv, 254)
+    ins = (nn.ValueNote(100, 1, 0, pub, 0xAAAA1),
+           nn.ValueNote(50, 1, 0, pub, 0xAAAA2))
+    outs = (nn.ValueNote(70, 1, 0, pub, 0xBBBB1),
+            nn.ValueNote(40, 1, 0, pub, 0xBBBB2))
+    ws = WorldState(data_depth=depth)
+    for i, note in enumerate(ins):
+        ws.insert_note(i, nn.encrypt_note(note))
+    tree = ws.data_tree
+    tx = JoinSplitTx(
+        public_input=0, public_output=30, asset_id=1, num_input_notes=2,
+        input_index=(0, 1), input_note=ins, output_note=outs,
+        signing_pub_key=pub, signature=(bytes(32), bytes(32)),
+        old_data_root=ws.data_root(),
+        input_path=(tree.get_hash_path(0), tree.get_hash_path(1)),
+        account_index=2, account_path=tree.get_hash_path(2),
+        input_owner=0xAA, output_owner=0xBB, account_private_key=priv,
+        alias_hash=0, nonce=0)
+    tx.signature = sign_tx(tx, priv, k=0x1234567)
+    return tx
+
+
+def join_split_public_inputs(tx) -> list:
+    """The 14 public inputs the tx computes natively, in the circuit's
+    order (rollup/join_split.py ``join_split_circuit``)."""
+    from aztec_tpu_torch.ff.bn254 import FR_MOD
+    from aztec_tpu_torch.rollup import notes_native as nn
+
+    nul = [nn.compute_nullifier(nn.encrypt_note(tx.input_note[i]),
+                                tx.input_index[i], tx.account_private_key,
+                                tx.num_input_notes > i) for i in range(2)]
+    out = [nn.encrypt_note(n) for n in tx.output_note]
+    fee = (sum(n.value for n in tx.input_note) + tx.public_input
+           - sum(n.value for n in tx.output_note) - tx.public_output) % FR_MOD
+    return [0, tx.public_input, tx.public_output, tx.asset_id,
+            *out[0], *out[1], *nul, tx.input_owner, tx.output_owner,
+            tx.old_data_root, fee]
+
+
+def join_split_path(device: str = "cuda") -> dict:
+    """Phase 5c: the depth-32 join-split (``join_split_tx``) built on the
+    port's TurboComposer, its 14 public inputs held against the values the
+    tx computes natively, checked, keyed, and proved 1 + JOIN_SPLIT_WARM
+    times unrolled (each verified, a tamper rejected), then once more under
+    torch.profiler (kernel time, and the idle share of the warm proofs'
+    median).  Returns the launches of the last unprofiled proof by
+    kernel."""
+    import torch
+
+    from aztec_tpu_torch.plonk.composer import TurboComposer
+    from aztec_tpu_torch.rollup.join_split import join_split_circuit
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    tx = join_split_tx()
+    log(f"join-split depth {JOIN_SPLIT_DEPTH}: tx_s="
+        f"{time.perf_counter() - t0:.2f} (world state, notes, signature)")
+
+    def build():
+        c = TurboComposer(device=device)
+        join_split_circuit(c, tx)
+        return c
+
+    label = f"join-split depth {JOIN_SPLIT_DEPTH}"
+    c = keyed_circuit(label, build, sync)
+    public = [c.get_variable(i) for i in c.public_inputs]
+    if public != join_split_public_inputs(tx):
+        raise AssertionError(f"{label}: the public inputs differ from the "
+                             "tx's native values")
+    launches, secs = prove(label, c, 1 + JOIN_SPLIT_WARM, sync)
+    if device == "cuda":
+        busy_ms, by_name = profile_proof(c, c.create_unrolled_prover)
+        warm_ms = sorted(secs[1:])[len(secs[1:]) // 2] * 1e3
+        log(f"{label}: kernel time {busy_ms:.1f} ms, device idle share "
+            f"{1 - busy_ms / warm_ms:.3f} of the median warm proof "
+            f"({warm_ms:.1f} ms); port kernels "
+            + json.dumps({k: round(v, 3) for k, v in by_name.items()}))
+    return launches
+
+
+def account_path(device: str = "cuda") -> dict:
+    """Phase 5c: the account circuit (rollup/circuit_data.py's tx, a
+    nonce-0 registration signed by the account key) with its account path
+    from a depth-JOIN_SPLIT_DEPTH ``WorldState`` data tree, checked, keyed,
+    proved once unrolled and verified.  Returns the proof's launches."""
+    import torch
+
+    from aztec_tpu_torch.crypto import pedersen as pd
+    from aztec_tpu_torch.plonk.composer import TurboComposer
+    from aztec_tpu_torch.rollup.account import (AccountTx, account_circuit,
+                                                 sign_tx)
+    from aztec_tpu_torch.rollup.world_state import WorldState
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    pub = pd.fixed_base_scalar_mul_g1(0x0B0B, 254)
+    spend = pd.fixed_base_scalar_mul_g1(0x51, 254)
+    tree = WorldState(data_depth=JOIN_SPLIT_DEPTH).data_tree
+    tx = AccountTx(
+        merkle_root=tree.root, account_public_key=pub,
+        new_account_public_key=pub, new_signing_pub_key_1=spend,
+        new_signing_pub_key_2=spend, alias_hash=0xA11A5, nonce=0,
+        migrate=True, gibberish=0x61BB, account_index=0,
+        account_path=tree.get_hash_path(0), signing_pub_key=spend,
+        signature=(bytes(32), bytes(32)))
+    tx.signature = sign_tx(tx, 0x0B0B, k=0xD00D)
+
+    def build():
+        c = TurboComposer(device=device)
+        account_circuit(c, tx)
+        return c
+
+    label = f"account depth {JOIN_SPLIT_DEPTH}"
+    return prove(label, keyed_circuit(label, build, sync), 1, sync)[0]
+
+
+class WorkerProcess:
+    """The port's proof worker as a child process (``python -u -m
+    aztec_tpu_torch.serving.proof_worker``), its stderr in a file, killed
+    by a watchdog if a request hangs."""
+
+    def __init__(self, env: dict, err_path: str, timeout: float = 600):
+        import subprocess
+        import threading
+
+        self.err = open(err_path, "wb")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-u", "-m",
+             "aztec_tpu_torch.serving.proof_worker"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.err,
+            cwd=ROOT, env=env)
+        self.watchdog = threading.Timer(timeout, self.proc.kill)
+        self.watchdog.start()
+
+    def request(self, frame: bytes):
+        """(payload, ok, seconds) of one request frame."""
+        import struct
+
+        t0 = time.perf_counter()
+        self.proc.stdin.write(frame)
+        self.proc.stdin.flush()
+        head = self.proc.stdout.read(4)
+        if len(head) < 4:
+            raise AssertionError("the worker closed its output")
+        n = struct.unpack(">I", head)[0]
+        body = self.proc.stdout.read(n + 1)
+        if len(body) < n + 1:
+            raise AssertionError("the worker closed its output mid-frame")
+        return body[:n], body[n], time.perf_counter() - t0
+
+    def close(self) -> int:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        rc = self.proc.wait()
+        self.watchdog.cancel()
+        self.err.close()
+        return rc
+
+
+def worker_imports(err_path: str) -> list:
+    """The modules a child started with ``-X importtime`` imported, from
+    its stderr."""
+    names = []
+    with open(err_path, errors="replace") as f:
+        for line in f:
+            if line.startswith("import time:") and "|" in line:
+                names.append(line.rsplit("|", 1)[1].strip())
+    return names
+
+
+def worker_path(device: str = "cuda") -> None:
+    """Phase 5c: the port's proof worker as a subprocess, its fixtures in a
+    fresh temporary directory (so that 0x200 and 0x201 really prove): the
+    ready byte; 0x101 and 0x100 at WORKER_GATES gates, each proof verified
+    here; 0x202 before any tx-rollup proof failed; 0x200 and 0x201 (the
+    join-split VK at 2^17 gates, the account VK; both unrolled Turbo) whose
+    stored padding proofs verify against the VKs they answered; an id-0
+    frame failed and the next request served; an unknown id failed and the
+    worker exits 0.  Its imports (``-X importtime``) hold neither JAX nor
+    the JAX package.  Then the HTTP server (``serving.http_server``) in
+    this process, over its own worker: GET /status and POST /create-proof.
+    The worker's launches are its own process's: none is counted here."""
+    import shutil
+    import struct
+    import tempfile
+
+    from aztec_tpu_torch.plonk.flavors import UnrolledTurboFlavor
+    from aztec_tpu_torch.plonk.verifier import Verifier
+    from aztec_tpu_torch.serving import proof_worker
+    from aztec_tpu_torch.utils import fixtures
+
+    tmp = tempfile.mkdtemp(prefix="smoke_fixtures_")
+    env = dict(os.environ, AZTEC_FIXTURES=tmp, PYTHONPATH=ROOT)
+    err_path = os.path.join(tmp, "worker_stderr.txt")
+    demo = {0x100: "standard", 0x101: "turbo"}
+    verifiers = {}
+
+    def check_demo(pid, payload, ok):
+        if pid not in verifiers:
+            c = proof_worker._build_demo_circuit(demo[pid], WORKER_GATES,
+                                                 device)
+            verifiers[pid] = c.create_verifier()
+        if ok != 1 or not verifiers[pid].verify_proof(payload):
+            raise AssertionError(f"worker {pid:#x}: the proof does not "
+                                 "verify")
+
+    secs = {}
+    saved = os.environ.get("AZTEC_FIXTURES")
+    worker = WorkerProcess(env, err_path)
+    try:
+        t0 = time.perf_counter()
+        if worker.proc.stdout.read(1) != b"\x01":
+            raise AssertionError("the worker sent no ready byte")
+        secs["ready"] = time.perf_counter() - t0
+        for pid in (0x101, 0x100):
+            payload, ok, secs[f"{pid:#x}"] = worker.request(
+                struct.pack(">II", pid, WORKER_GATES))
+            check_demo(pid, payload, ok)
+        payload, ok, secs["0x202"] = worker.request(struct.pack(">I", 0x202))
+        if payload or ok:
+            raise AssertionError("0x202 before any tx-rollup proof answered")
+        # the padding proofs the worker stored, read back from its fixtures
+        os.environ["AZTEC_FIXTURES"] = tmp
+        for pid, name, n in ((0x200, "join_split_circuit_data_d6", 1 << 17),
+                             (0x201, "account_circuit_data", None)):
+            payload, ok, secs[f"{pid:#x}"] = worker.request(
+                struct.pack(">I", pid))
+            if ok != 1:
+                raise AssertionError(f"worker {pid:#x} failed")
+            vk = fixtures.vk_from_json(payload.decode())
+            if vk.settings.name != "unrolled_turbo" or (n and vk.n != n):
+                raise AssertionError(f"worker {pid:#x}: VK n={vk.n} "
+                                     f"settings {vk.settings.name}")
+
+            def missing():
+                raise AssertionError(f"worker {pid:#x} stored no fixture")
+
+            proof, stored = fixtures.compute_or_load_proof_and_vk(
+                name, missing, version="1")
+            if fixtures.vk_to_json(stored) != payload.decode():
+                raise AssertionError(f"worker {pid:#x}: stored VK differs")
+            if not Verifier(vk, UnrolledTurboFlavor).verify_proof(proof):
+                raise AssertionError(f"worker {pid:#x}: the padding proof "
+                                     "does not verify against its VK")
+            log(f"worker {pid:#x}: VK n={vk.n} {vk.num_public_inputs} "
+                f"public inputs settings={vk.settings.name}; its stored "
+                f"proof of {len(proof)} bytes verifies")
+        payload, ok, secs["0x0"] = worker.request(
+            struct.pack(">III", 0, 1, 3) + b"abc")
+        if payload or ok:
+            raise AssertionError("an id-0 frame was answered")
+        payload, ok, secs["0x101_after_0x0"] = worker.request(
+            struct.pack(">II", 0x101, WORKER_GATES))
+        check_demo(0x101, payload, ok)
+        payload, ok, secs["unknown"] = worker.request(
+            struct.pack(">I", 0x999))
+        if payload or ok:
+            raise AssertionError("an unknown id was answered")
+        rc = worker.proc.wait(timeout=60)
+        if rc != 0:
+            raise AssertionError(f"the worker exited {rc}")
+    finally:
+        worker.close()
+        if saved is None:
+            os.environ.pop("AZTEC_FIXTURES", None)
+        else:
+            os.environ["AZTEC_FIXTURES"] = saved
+    imported = worker_imports(err_path)
+    leaked = [m for m in imported if m.split(".")[0] in ("jax", "aztec_tpu")]
+    # under -m the worker's own module runs as __main__; circuit_data is
+    # imported by the 0x200 request, so the list covers the whole run
+    if "aztec_tpu_torch.rollup.circuit_data" not in imported or leaked:
+        raise AssertionError(f"worker imports: {len(imported)} read, "
+                             f"JAX or the JAX package: {leaked[:5]}")
+    with open(err_path, errors="replace") as f:
+        for line in f:
+            if not line.startswith("import time:"):
+                log(f"  worker: {line.rstrip()}")
+    log(f"worker: {len(imported)} modules imported, none of JAX or the JAX "
+        f"package; exit 0 after the unknown id; request seconds "
+        + json.dumps({k: round(v, 3) for k, v in secs.items()}))
+    http_path(env, verifiers[0x101])
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def http_path(env: dict, verifier) -> None:
+    """The port's HTTP server in this process, over its own worker child:
+    GET /status, then POST /create-proof of a WORKER_GATES-gate Turbo demo
+    proof, verified here."""
+    import http.client
+    import struct
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from aztec_tpu_torch.serving.http_server import WorkerClient, make_handler
+
+    saved = dict(os.environ)
+    os.environ.update(env)
+    worker = WorkerClient()
+    try:
+        worker.start()
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(worker))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          httpd.server_address[1],
+                                          timeout=600)
+        conn.request("GET", "/status")
+        r = conn.getresponse()
+        status = json.loads(r.read())
+        if r.status != 200 or status != {"ready": True}:
+            raise AssertionError(f"GET /status: {r.status} {status}")
+        t0 = time.perf_counter()
+        conn.request("POST", "/create-proof",
+                     body=struct.pack(">II", 0x101, WORKER_GATES))
+        r = conn.getresponse()
+        proof = r.read()
+        secs = time.perf_counter() - t0
+        if r.status != 200 or not verifier.verify_proof(proof):
+            raise AssertionError(f"POST /create-proof: {r.status}, the proof "
+                                 "does not verify")
+        log(f"http: GET /status {status}; POST /create-proof 0x101 at "
+            f"{WORKER_GATES} gates: {len(proof)} bytes in {secs:.3f} s, "
+            "verified")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        worker.stop()
 
 
 def run(argv=()) -> int:
@@ -2163,6 +2558,12 @@ def run(argv=()) -> int:
                           [k for k in pr1 if k != "mixed_add_unsafe"],
                           turbo_path)
     profile_turbo_fresh()
+    turbo_vectors(names=("join_split_d3",))
+    turbo_kernels = [k for k in pr1 if k != "mixed_add_unsafe"]
+    join_split_launches = path("proof_join_split_2pow17", turbo_kernels,
+                               join_split_path)
+    path("proof_account", turbo_kernels, account_path)
+    worker_path()
     path("msm_engine_2pow20", ["rake_scan_packed", "bucket_phase"],
          check_engine, case)
     del case
@@ -2190,6 +2591,7 @@ def run(argv=()) -> int:
             "launches_per_2pow17_turbo_proof": {
                 flavor: counts.get(name, 0)
                 for flavor, counts in turbo_launches.items()},
+            "launches_per_join_split_proof": join_split_launches.get(name, 0),
         })
         floor = redesigned["times"].get("chain_floor_ms", {}).get(name)
         if floor is not None:

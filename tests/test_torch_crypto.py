@@ -10,7 +10,7 @@ from aztec_tpu.crypto import pedersen as jped
 from aztec_tpu.plonk import manifests as jmanifests
 from aztec_tpu.transcript.transcript import Transcript as JTranscript
 from aztec_tpu_torch.crypto import pedersen
-from aztec_tpu_torch.ff.bn254 import FR_MOD
+from aztec_tpu_torch.ff.bn254 import FQ_MOD, FR_MOD
 from aztec_tpu_torch.plonk import manifests
 from aztec_tpu_torch.transcript.transcript import Transcript
 
@@ -41,6 +41,24 @@ def test_compress_native_matches_reference():
     # x of left * G_0' + right * G_1' (the stitched ladders) is on the curve
     pt = pedersen.g_add(pedersen.hash_single(5, 0), pedersen.hash_single(9, 1))
     assert pedersen.g_on_curve(pt)
+
+
+@pytest.mark.parametrize("base", ["grumpkin_one", "generator_3"])
+def test_g_mul_matches_reference(base):
+    """g_mul and the fixed-base ladders, walked in Jacobian coordinates,
+    give the reference's affine points; Grumpkin's order is bn254's Fq
+    modulus, so k = FQ_MOD gives infinity."""
+    pt = (pedersen.GRUMPKIN_GEN if base == "grumpkin_one"
+          else pedersen.get_generator(3))
+    for k in [0, 1, 2, FQ_MOD - 1, FQ_MOD, FQ_MOD + 1] + _values(11, 3):
+        assert pedersen.g_mul(k, pt) == jped.g_mul(k, pt)
+    for v in _values(13, 3):
+        for bits in (254, 128, 32):
+            v %= 1 << bits
+            assert (pedersen.fixed_base_scalar_mul(v, bits, 3)
+                    == jped.fixed_base_scalar_mul(v, bits, 3))
+            assert (pedersen.fixed_base_scalar_mul_g1(v, bits)
+                    == jped.fixed_base_scalar_mul_g1(v, bits))
 
 
 @pytest.mark.parametrize("nbytes", [0, 1, 31, 32, 100])

@@ -16,7 +16,20 @@ with the keccak transcript (``turbo_drive``) and unrolled
 linearisation); and ``turbo_pedersen``, aztec_tpu_torch/tools/
 turbo_circuit.py's circuit at 2^10 gates (one in-circuit Pedersen
 ``compress``, one range constraint of each width, one AND, one XOR),
-proved only here and on the card (chip_smoke.py), not by the CPU tests.
+proved only here and on the card (chip_smoke.py), not by the CPU tests;
+and ``join_split_d3``, the rollup's depth-3 join-split tx of
+tests/test_join_split.py (two input notes, 14 public inputs, 2^16 gates)
+proved unrolled, whose proof and VK ``tests/test_torch_rollup.py`` verifies
+with both packages and the card proves again (chip_smoke.py).
+
+The committed ``join_split_d3.json`` is the port's proof on the card
+(``--card``, below): the JAX package's XLA:CPU proof at 2^16 did not end
+within 90 minutes.  tests/test_torch_rollup.py holds its VK to the
+dev-tau evaluation of aztec_tpu's composer lists on the host, and
+aztec_tpu's verifier accepts its proof.  Every record names its
+``producer``: ``aztec_tpu`` (a record without the key was written by this
+script before it had one) or ``aztec_tpu_torch/card``, which only the
+circuits of ``CARD_ONLY`` may carry.
 ``tests/test_torch_plonk.py`` and ``tests/test_torch_turbo.py`` hold the
 port (``aztec_tpu_torch``) to these bytes without compiling the JAX prover.
 
@@ -38,10 +51,17 @@ with, optionally followed by the names to make (``mont_pow`` and
 ``turbo_quotient`` among them):
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_vectors/make_vectors.py
+
+With ``--card`` the named circuits, all of ``CARD_ONLY``, are proved by
+the port (aztec_tpu_torch) on the card instead, in the same record format
+with the card as producer; no JAX is imported:
+
+    python tests/torch_vectors/make_vectors.py --card join_split_d3
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import sys
@@ -125,6 +145,47 @@ def build_turbo_pedersen(mod):
                                logic=1, seed=10)
 
 
+JOIN_SPLIT_PRIV = 0x0B0B + 7
+
+
+def join_split_d3_tx(package: str):
+    """The depth-3 tx of tests/test_join_split.py, built with the modules
+    of ``package`` (``aztec_tpu`` or ``aztec_tpu_torch``)."""
+    mod = lambda name: importlib.import_module(f"{package}.{name}")  # noqa: E731
+    nn = mod("rollup.notes_native")
+    js = mod("rollup.join_split")
+    pub = mod("crypto.pedersen").fixed_base_scalar_mul_g1(JOIN_SPLIT_PRIV,
+                                                           254)
+    in1 = nn.ValueNote(100, 1, 0, pub, 0xAAAA1)
+    in2 = nn.ValueNote(50, 1, 0, pub, 0xAAAA2)
+    out1 = nn.ValueNote(70, 1, 0, pub, 0xBBBB1)
+    out2 = nn.ValueNote(40, 1, 0, pub, 0xBBBB2)
+    tree = mod("merkle").MemoryTree(3)
+    tree.update_element(0, nn.leaf_bytes(nn.encrypt_note(in1)))
+    tree.update_element(1, nn.leaf_bytes(nn.encrypt_note(in2)))
+    tx = js.JoinSplitTx(
+        public_input=0, public_output=30, asset_id=1, num_input_notes=2,
+        input_index=(0, 1), input_note=(in1, in2), output_note=(out1, out2),
+        signing_pub_key=pub, signature=(bytes(32), bytes(32)),
+        old_data_root=tree.root,
+        input_path=(tree.get_hash_path(0), tree.get_hash_path(1)),
+        account_index=2, account_path=tree.get_hash_path(2),
+        input_owner=0xAA, output_owner=0xBB,
+        account_private_key=JOIN_SPLIT_PRIV, alias_hash=0, nonce=0)
+    tx.signature = js.sign_tx(tx, JOIN_SPLIT_PRIV, k=0x1234567)
+    return tx
+
+
+def build_join_split_d3(mod):
+    """The join-split circuit of ``join_split_d3_tx`` on ``mod``'s
+    composer (subgroup 2^16)."""
+    c = mod.TurboComposer()
+    js = importlib.import_module(f"{mod.package}.rollup.join_split")
+    js.join_split_circuit(c, join_split_d3_tx(mod.package))
+    assert not c.failed, c.err
+    return c
+
+
 # name: (the circuit, built from a namespace of a package's classes; its
 # counter-rng seed)
 CIRCUITS = {
@@ -133,11 +194,16 @@ CIRCUITS = {
     "turbo_drive": (build_turbo_drive, 9),
     "unrolled_turbo_drive": (build_turbo_drive, 9),
     "turbo_pedersen": (build_turbo_pedersen, 10),
+    "join_split_d3": (build_join_split_d3, 11),
 }
 # proved with create_unrolled_prover (and verified by the unrolled verifier)
-UNROLLED = ("unrolled_turbo_drive",)
+UNROLLED = ("unrolled_turbo_drive", "join_split_d3")
 # the circuits whose proving-key planes are written (the rest: bytes only)
 PLANES = ("standard_drive1", "standard_chain8", "turbo_drive")
+# the circuits whose committed record may be the port's own proof on the
+# card (``--card``); every other record is aztec_tpu's
+CARD_ONLY = ("join_split_d3",)
+REFERENCE, CARD = "aztec_tpu", "aztec_tpu_torch/card"
 
 
 def make_prover(c, name: str):
@@ -241,8 +307,52 @@ def pow_vectors() -> None:
     print("mont_pow: written", flush=True)
 
 
+def record(name: str, c, prover, proof: bytes, producer: str) -> dict:
+    """The JSON record of a vector: the keyed composer ``c``, its prover,
+    the proof and the package that proved it."""
+    vk = c.compute_verification_key()
+    return {
+        "producer": producer,
+        "n": vk.n,
+        "rng_seed": CIRCUITS[name][1],
+        "public_inputs": [hex(v) for v in prover.public_values],
+        "proof": proof.hex(),
+        "vk": {k: None if v is None else [hex(v[0]), hex(v[1])]
+               for k, v in vk.commitments.items()},
+    }
+
+
+def card_vectors(names) -> None:
+    """Prove ``names`` (all of CARD_ONLY) with the port on the card and
+    write their records."""
+    import plonk_cases
+
+    refused = [name for name in names if name not in CARD_ONLY]
+    if refused:
+        raise SystemExit(f"--card writes only {CARD_ONLY}, not {refused}: "
+                         "the other records are aztec_tpu's proofs")
+    mod = plonk_cases.port_classes("cuda")
+    for name in names:
+        build, seed = CIRCUITS[name]
+        c = build(mod)
+        prover = make_prover(c, name)
+        prover.rng = counter_rng(seed)
+        proof = prover.construct_proof()
+        if not make_verifier(c, name).verify_proof(proof):
+            raise AssertionError(f"{name}: the port rejects its proof")
+        with open(os.path.join(HERE, f"{name}.json"), "w") as f:
+            json.dump(record(name, c, prover, proof, CARD), f, indent=1)
+        print(f"{name}: proved on the card, n={c.subgroup_size()} "
+              f"proof={len(proof)} bytes, verified", flush=True)
+
+
 def main() -> None:
     from types import SimpleNamespace
+
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    if "--card" in sys.argv:
+        card_vectors(args)
+        return
 
     from aztec_tpu.utils import setup_compile_cache
 
@@ -250,11 +360,12 @@ def main() -> None:
     from aztec_tpu.plonk import composer as comp
     from aztec_tpu.stdlib import pedersen_circuit
 
-    mod = SimpleNamespace(StandardComposer=comp.StandardComposer,
+    mod = SimpleNamespace(package="aztec_tpu",
+                          StandardComposer=comp.StandardComposer,
                           TurboComposer=comp.TurboComposer,
                           pedersen=pedersen_circuit,
                           MulTriple=comp.MulTriple, AddTriple=comp.AddTriple)
-    only = set(sys.argv[1:])
+    only = set(args)
     if not only or "mont_pow" in only:
         pow_vectors()
     if not only or "turbo_quotient" in only:
@@ -266,7 +377,6 @@ def main() -> None:
         prover = make_prover(c, name)
         prover.rng = counter_rng(seed)
         proof = prover.construct_proof()
-        vk = c.compute_verification_key()
         pk = c.compute_proving_key()
         if name in PLANES:
             planes = {}
@@ -278,16 +388,9 @@ def main() -> None:
             np.savez_compressed(
                 os.path.join(HERE, f"{name}.npz"),
                 **{k: v.astype(np.uint16) for k, v in planes.items()})
-        rec = {
-            "n": pk.n,
-            "rng_seed": seed,
-            "public_inputs": [hex(v) for v in prover.public_values],
-            "proof": proof.hex(),
-            "vk": {k: None if v is None else [hex(v[0]), hex(v[1])]
-                   for k, v in vk.commitments.items()},
-        }
         with open(os.path.join(HERE, f"{name}.json"), "w") as f:
-            json.dump(rec, f, indent=1)
+            json.dump(record(name, c, prover, proof, REFERENCE), f,
+                      indent=1)
         ok = make_verifier(c, name).verify_proof(proof)
         print(f"{name}: n={pk.n} proof={len(proof)} bytes verified={ok}",
               flush=True)

@@ -1,7 +1,9 @@
 """Whole-proof checks of the port (aztec_tpu_torch) against vectors that
-the JAX package (aztec_tpu) produced with make_vectors.py.  Shared by
-tests/test_torch_plonk.py, tests/test_torch_plonk_chain.py and
-tests/test_torch_turbo.py."""
+the JAX package (aztec_tpu) produced with make_vectors.py (and
+``join_split_d3``, which the port proved on the card: make_vectors.py
+``CARD_ONLY``).  Shared by tests/test_torch_plonk.py,
+tests/test_torch_plonk_chain.py, tests/test_torch_turbo.py,
+tests/test_torch_rollup.py and chip_smoke.py."""
 
 from __future__ import annotations
 
@@ -16,9 +18,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def load_vector(name: str):
-    """(the JSON record, the key planes or {} where none were written)."""
+    """(the JSON record, the key planes or {} where none were written).
+    Only a circuit of make_vectors.CARD_ONLY may hold a record that the
+    port proved on the card; every other record must be aztec_tpu's."""
+    from make_vectors import CARD_ONLY, REFERENCE
+
     with open(os.path.join(HERE, f"{name}.json")) as f:
         rec = json.load(f)
+    producer = rec.get("producer", REFERENCE)
+    assert producer == REFERENCE or name in CARD_ONLY, (
+        f"{name}: the record was written by {producer}, not {REFERENCE}")
     path = os.path.join(HERE, f"{name}.npz")
     if not os.path.exists(path):
         return rec, {}
@@ -32,7 +41,7 @@ def load_vector(name: str):
 SAME_CIRCUIT = {"unrolled_turbo_drive": "turbo_drive"}
 # aztec_tpu's flavor (plonk.flavors.FLAVORS) of each vector's proof
 FLAVOR = {"turbo_drive": "turbo", "unrolled_turbo_drive": "unrolled_turbo",
-          "turbo_pedersen": "turbo"}
+          "turbo_pedersen": "turbo", "join_split_d3": "unrolled_turbo"}
 
 
 def port_classes(device: str = "cpu") -> SimpleNamespace:
@@ -41,6 +50,7 @@ def port_classes(device: str = "cpu") -> SimpleNamespace:
     from aztec_tpu_torch.stdlib import pedersen_circuit
 
     return SimpleNamespace(
+        package="aztec_tpu_torch",
         StandardComposer=functools.partial(comp.StandardComposer,
                                            device=device),
         TurboComposer=functools.partial(comp.TurboComposer, device=device),
