@@ -112,6 +112,36 @@ def _affine(a):
     return (X * zi2 % P, Y * zi2 * zi % P)
 
 
+def _batch_inverse(vals):
+    """Inverses of non-zero ints mod P, one ``pow`` (Montgomery's trick)."""
+    prefix = [1]
+    for v in vals:
+        prefix.append(prefix[-1] * v % P)
+    inv = pow(prefix[-1], -1, P)
+    out = [0] * len(vals)
+    for i in range(len(vals) - 1, -1, -1):
+        out[i] = inv * prefix[i] % P
+        inv = inv * vals[i] % P
+    return out
+
+
+def _j_add_j(a, b):
+    """Jacobian a + Jacobian b (add-2007-bl)."""
+    X1, Y1, Z1 = a
+    X2, Y2, Z2 = b
+    Z1Z1, Z2Z2 = Z1 * Z1 % P, Z2 * Z2 % P
+    U1, U2 = X1 * Z2Z2 % P, X2 * Z1Z1 % P
+    S1, S2 = Y1 * Z2 * Z2Z2 % P, Y2 * Z1 * Z1Z1 % P
+    H, r = (U2 - U1) % P, (S2 - S1) % P
+    if H == 0:
+        return _j_dbl(a) if r == 0 else None
+    HH = H * H % P
+    HHH = H * HH % P
+    V = U1 * HH % P
+    X3 = (r * r - HHH - 2 * V) % P
+    return (X3, (r * (V - X3) - S1 * HHH) % P, Z1 * Z2 * H % P)
+
+
 def g_neg(a):
     if a is None:
         return None
@@ -192,16 +222,18 @@ def _ladder_from_point(pt: Tuple[int, int]) -> Tuple[Tuple, ...]:
     """[(one, three)] * QUAD_LENGTH, MSB-first (ref: pedersen.cpp:115-134),
     built over an arbitrary base point (generators, or grumpkin g1::one
     for the g1 ladder used by group fixed-base muls)."""
-    acc = pt
-    ones = []
-    threes = []
+    # 4^i pt and 3 * 4^i pt in Jacobian coordinates, normalised together
+    # (one inversion; the same affine points as chains of g_dbl / g_add)
+    acc = (pt[0], pt[1], 1)
+    walk = []
     for _ in range(QUAD_LENGTH):
-        ones.append(acc)
-        acc = g_dbl(acc)
-        threes.append(g_add(ones[-1], acc))
-        acc = g_dbl(acc)
-    ones.reverse()
-    threes.reverse()
+        two = _j_dbl(acc)
+        walk += [acc, _j_add_j(acc, two)]
+        acc = _j_dbl(two)
+    zinv = _batch_inverse([z for _, _, z in walk])
+    aff = [(X * zi * zi % P, Y * zi * zi * zi % P)
+           for (X, Y, _), zi in zip(walk, zinv)]
+    ones, threes = aff[0::2][::-1], aff[1::2][::-1]
     return tuple(zip(ones, threes))
 
 
@@ -224,13 +256,12 @@ def selectors_from_ladder(lad: Tuple[Tuple, ...]):
     """
     inv8 = pow(8, -1, P)
     out = []
-    for (one, three) in lad:
+    dinvs = _batch_inverse([3 * (one[0] - three[0]) % P for one, three in lad])
+    for (one, three), dinv in zip(lad, dinvs):
         xb, yb = one
         xg, yg = three
         q_x_1 = (xg - xb) * inv8 % P
         q_x_2 = (9 * xb - xg) * inv8 % P
-        d = 3 * (xb - xg) % P
-        dinv = pow(d, -1, P)
         q_y_1 = (3 * yb - yg) * dinv % P
         q_y_2 = (xb * yg - 3 * xg * yb) * dinv % P
         out.append((q_x_1, q_x_2, q_y_1, q_y_2))

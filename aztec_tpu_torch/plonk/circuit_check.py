@@ -2,7 +2,7 @@
 
 Evaluates every gate identity row-by-row with exact integer arithmetic,
 grouped by independent alpha power as the quotient kernels combine them
-(kernels.std_quotient / kernels.turbo_quotient): each group must vanish on
+(kernels._std_terms / kernels._turbo_terms): each group must vanish on
 every gate row for the circuit to be satisfiable.  Port of
 aztec_tpu/plonk/circuit_check.py's ``check_standard`` and ``check_turbo``
 (its ``check_mimc`` waits for the MiMC composer).

@@ -16,7 +16,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..ff import FR, limb
 from ..ff.bn254 import FR_MOD
+from ..numeric.bigint import ints_to_limbs
 from ..srs.reference_string import FakeReferenceStringFactory
 from . import kernels
 from .manifests import STANDARD, TURBO, StandardSettings
@@ -71,8 +73,11 @@ class ComposerBase:
     def __init__(self):
         self.variables: List[int] = []
         self.next_var_index: List[int] = []
-        self.prev_var_index: List[int] = []
-        self.real_variable_index: List[int] = []
+        # the reference's real_variable_index, kept lazily: a class's
+        # members point at its real variable or at a member that was real
+        # before a merge (``_find`` follows and compresses the pointers)
+        self._real: List[int] = []
+        self._head: Dict[int, int] = {}     # real variable -> chain head
         self.public_inputs: List[int] = []
         self.n = 0
         self.failed = False
@@ -90,19 +95,44 @@ class ComposerBase:
         self.recursive_proof_public_input_indices = tuple(
             public_input_positions)
 
-    FIRST_IN_CLASS = 0xFFFFFFFF
     REAL_VARIABLE = 0xFFFFFFFE
 
     def add_variable(self, value: int) -> int:
         idx = len(self.variables)
         self.variables.append(value % FR_MOD)
         self.next_var_index.append(self.REAL_VARIABLE)
-        self.prev_var_index.append(self.FIRST_IN_CLASS)
-        self.real_variable_index.append(idx)
+        self._real.append(idx)
         return idx
 
+    def _find(self, idx: int) -> int:
+        """The real variable of idx's class (path compression)."""
+        p = self._real
+        r = p[idx]
+        if p[r] == r:
+            return r
+        while p[r] != r:
+            r = p[r]
+        while p[idx] != r:
+            p[idx], idx = r, p[idx]
+        return r
+
+    def real_variables(self) -> np.ndarray:
+        """real_variable_index as an int64 array (pointer jumping)."""
+        p = np.asarray(self._real, dtype=np.int64)
+        while True:
+            q = p[p]
+            if np.array_equal(q, p):
+                return p
+            p = q
+
+    @property
+    def real_variable_index(self) -> List[int]:
+        """ref: composer_base real_variable_index: each variable's real
+        variable, the last of its class's chain."""
+        return self.real_variables().tolist()
+
     def get_variable(self, idx: int) -> int:
-        return self.variables[self.real_variable_index[idx]]
+        return self.variables[self._find(idx)]
 
     def add_public_variable(self, value: int) -> int:
         idx = self.add_variable(value)
@@ -112,33 +142,23 @@ class ComposerBase:
     def set_public_input(self, idx: int):
         self.public_inputs.append(idx)
 
-    def _first_in_class(self, idx: int) -> int:
-        idx = self.real_variable_index[idx]
-        while self.prev_var_index[idx] != self.FIRST_IN_CLASS:
-            idx = self.prev_var_index[idx]
-        return idx
-
     def assert_equal(self, a_idx: int, b_idx: int, msg: str = "assert_equal"):
-        """ref: composer_base.cpp:8-36."""
+        """ref: composer_base.cpp:8-36: b's class joins a's, its chain
+        before a's; every member's real variable becomes a's.  The members
+        are re-pointed lazily (``_find``), so a merge costs O(1) where the
+        reference walks b's class: the class of the constant 0 grows with
+        every in-circuit equality to a constant."""
         if self.get_variable(a_idx) != self.get_variable(b_idx) and not self.failed:
             self.failed = True
             self.err = msg
-        a_real = self.real_variable_index[a_idx]
-        b_real = self.real_variable_index[b_idx]
+        a_real = self._find(a_idx)
+        b_real = self._find(b_idx)
         if a_real == b_real:
             return
-        b_start = self._first_in_class(b_idx)
-        # update real indices of the b-chain
-        cur = b_start
-        while True:
-            self.real_variable_index[cur] = a_real
-            nxt = self.next_var_index[cur]
-            if nxt == self.REAL_VARIABLE:
-                break
-            cur = nxt
-        a_start = self._first_in_class(a_idx)
+        self._real[b_real] = a_real
+        a_start = self._head.pop(a_real, a_real)
+        self._head[a_real] = self._head.pop(b_real, b_real)
         self.next_var_index[b_real] = a_start
-        self.prev_var_index[a_start] = b_real
 
     # -- copy cycles -> sigma mappings (ref: composer_base.cpp:38-158) -------
     def compute_sigma_mappings(self, subgroup_size: int, program_width: int):
@@ -146,39 +166,72 @@ class ComposerBase:
 
         factor_idx encodes the coset multiplier: column j -> j (0 => 1,
         1 => k1, 2 => k2), 3 => external (public input rows of sigma_1).
-        """
+
+        Each copy cycle holds, in order, the (row, column) slots of one
+        real variable: its public-input rows (columns 0 and 1) first, then
+        its gate slots row by row; a slot maps to the next slot of its
+        cycle, the last to the first.  A stable sort by real variable
+        groups the cycles in that order (numpy, no loop over slots)."""
         num_pub = len(self.public_inputs)
-        wire_lists = self._wire_lists()[:program_width]
+        n = self.n
+        real = self.real_variables()
+        wires = np.stack([np.asarray(wl[:n], dtype=np.int64)
+                          for wl in self._wire_lists()[:program_width]],
+                         axis=1)                               # (n, W)
+        pub = np.asarray(self.public_inputs, dtype=np.int64)
+        keys = np.concatenate([np.repeat(real[pub], 2),
+                               real[wires].reshape(-1)])
+        rows = np.concatenate([np.repeat(np.arange(num_pub), 2),
+                               np.repeat(np.arange(num_pub, num_pub + n),
+                                         program_width)])
+        cols = np.concatenate([np.tile([0, 1], num_pub),
+                               np.tile(np.arange(program_width), n)])
+        order = np.argsort(keys, kind="stable")
+        sk = keys[order]
+        pos = np.arange(sk.size)
+        first = np.ones(sk.size, bool)
+        first[1:] = sk[1:] != sk[:-1]
+        last = np.ones(sk.size, bool)
+        last[:-1] = first[1:]
+        cycle_start = np.maximum.accumulate(np.where(first, pos, 0))
+        nxt = order[np.where(last, cycle_start, pos + 1)]
 
-        cycles: Dict[int, List] = {}
-        for i, pub in enumerate(self.public_inputs):
-            real = self.real_variable_index[pub]
-            cyc = cycles.setdefault(real, [])
-            cyc.append((i, 0))
-            cyc.append((i, 1))
-        for i in range(self.n):
-            for col, wl in enumerate(wire_lists):
-                real = self.real_variable_index[wl[i]]
-                cycles.setdefault(real, []).append((i + num_pub, col))
-
-        next_row = [
-            np.arange(subgroup_size, dtype=np.int32) for _ in range(program_width)
-        ]
-        factor_idx = [
-            np.full(subgroup_size, c, np.int32) for c in range(program_width)
-        ]
-        for cyc in cycles.values():
-            m = len(cyc)
-            for j in range(m):
-                row, col = cyc[j]
-                nrow, ncol = cyc[(j + 1) % m]
-                next_row[col][row] = nrow
-                factor_idx[col][row] = ncol
+        next_row = np.tile(np.arange(subgroup_size, dtype=np.int32),
+                           (program_width, 1))
+        factor_idx = np.repeat(np.arange(program_width, dtype=np.int32)[:, None],
+                               subgroup_size, axis=1)
+        next_row[cols[order], rows[order]] = rows[nxt]
+        factor_idx[cols[order], rows[order]] = cols[nxt]
         # public input consistency override on sigma_1 (external tag = 4)
-        for i in range(num_pub):
-            next_row[0][i] = i
-            factor_idx[0][i] = 4
-        return next_row, factor_idx
+        next_row[0, :num_pub] = np.arange(num_pub)
+        factor_idx[0, :num_pub] = 4
+        return list(next_row), list(factor_idx)
+
+    def witness_planes(self, size: int, width: int):
+        """Wire lagrange polynomials as device planes.
+
+        Layout (ref: composer_base.cpp:216-264): first num_pub rows carry
+        the public input value in w_1 and w_2 (the other wires 0), gates
+        follow, zero-pad to the subgroup size.  Every variable is converted
+        once; each wire gathers its column of them."""
+        num_pub = len(self.public_inputs)
+        real = self.real_variables()
+        # most variables are distinct: no deduplication (ints_to_mont)
+        table = limb.to_mont(torch.as_tensor(
+            ints_to_limbs(self.variables + [0]).astype(np.int32),
+            device=self.device), FR)
+        zero = len(self.variables)
+        pub = real[np.asarray(self.public_inputs, dtype=np.int64)]
+        out = {}
+        for k, wl in enumerate(self._wire_lists()[:width]):
+            idx = np.full(size, zero, np.int64)
+            if k < 2:
+                idx[:num_pub] = pub
+            idx[num_pub:num_pub + self.n] = real[
+                np.asarray(wl[:self.n], dtype=np.int64)]
+            out[f"w_{k + 1}"] = table.index_select(
+                1, torch.from_numpy(idx).to(self.device))
+        return out, [self.variables[i] for i in pub.tolist()]
 
     def _wire_lists(self):
         raise NotImplementedError
@@ -310,28 +363,7 @@ class StandardComposer(ComposerBase):
         return pk
 
     def compute_witness(self):
-        """Wire lagrange polynomials as device planes.
-
-        Layout (ref: composer_base.cpp:216-264): first num_pub rows carry the
-        public input value in w_1 and w_2 (w_3 = 0), gates follow, zero-pad
-        to the subgroup size.
-        """
-        num_pub = len(self.public_inputs)
-        size = self.subgroup_size()
-        pubvals = [self.get_variable(i) for i in self.public_inputs]
-        pad = size - self.n - num_pub
-
-        def build(wlist, include_pub):
-            vals = (pubvals if include_pub else [0] * num_pub) + [
-                self.get_variable(w) for w in wlist
-            ] + [0] * pad
-            return ints_to_mont(vals, self.device)
-
-        return {
-            "w_1": build(self.w_l, True),
-            "w_2": build(self.w_r, True),
-            "w_3": build(self.w_o, False),
-        }, pubvals
+        return self.witness_planes(self.subgroup_size(), 3)
 
     def compute_verification_key(self) -> VerificationKey:
         if self._vk is not None:
@@ -439,13 +471,23 @@ class TurboComposer(ComposerBase):
     create_unrolled_verifier = StandardComposer.create_unrolled_verifier
 
     # -- gate recording --------------------------------------------------------
-    def _push(self, a, b, c, d, **sel):
+    def _push(self, a, b, c, d, q_m=0, q_c=0, q_1=0, q_2=0, q_3=0, q_4=0,
+              q_5=0, q_arith=0, q_ecc_1=0, q_range=0, q_logic=0):
         self.w_l.append(a)
         self.w_r.append(b)
         self.w_o.append(c)
         self.w_4.append(d)
-        for s in self.SELECTORS:
-            getattr(self, s).append(sel.get(s, 0) % FR_MOD)
+        self.q_m.append(q_m % FR_MOD)
+        self.q_c.append(q_c % FR_MOD)
+        self.q_1.append(q_1 % FR_MOD)
+        self.q_2.append(q_2 % FR_MOD)
+        self.q_3.append(q_3 % FR_MOD)
+        self.q_4.append(q_4 % FR_MOD)
+        self.q_5.append(q_5 % FR_MOD)
+        self.q_arith.append(q_arith % FR_MOD)
+        self.q_ecc_1.append(q_ecc_1 % FR_MOD)
+        self.q_range.append(q_range % FR_MOD)
+        self.q_logic.append(q_logic % FR_MOD)
         self.n += 1
 
     def create_dummy_gate(self):
@@ -548,10 +590,10 @@ class TurboComposer(ComposerBase):
             wires[i & 3].append(accumulator_index)
 
         used_gates = (num_quads + 1 + 3) // 4
-        for i in range(used_gates):
-            q_r = 1 if i < used_gates - 1 else 0
-            for s in self.SELECTORS:
-                getattr(self, s).append(q_r if s == "q_range" else 0)
+        zeros = [0] * used_gates
+        for s in self.SELECTORS:
+            getattr(self, s).extend(
+                [1] * (used_gates - 1) + [0] if s == "q_range" else zeros)
         self.w_l.append(self.zero_idx)
         self.w_r.append(self.zero_idx)
         self.w_o.append(self.zero_idx)
@@ -656,21 +698,4 @@ class TurboComposer(ComposerBase):
         return pk
 
     def compute_witness(self):
-        num_pub = len(self.public_inputs)
-        size = self.subgroup_size()
-        pubvals = [self.get_variable(i) for i in self.public_inputs]
-        pad = size - self.n - num_pub
-
-        def build(wlist, include_pub):
-            vals = (pubvals if include_pub else [0] * num_pub) + [
-                self.get_variable(w) for w in wlist
-            ] + [0] * pad
-            return ints_to_mont(vals, self.device)
-
-        return {
-            "w_1": build(self.w_l, True),
-            "w_2": build(self.w_r, True),
-            "w_3": build(self.w_o, False),
-            "w_4": build(self.w_4, False),
-        }, pubvals
-
+        return self.witness_planes(self.subgroup_size(), 4)

@@ -18,6 +18,67 @@ from . import kernels
 
 M = FR_MOD
 
+# lane slices of a coset quarter: the quotient's temporaries are a slice
+# wide, and the card still sees n / 8 lanes a launch (2^21 at 2^24)
+QUARTER_SLICES = 8
+
+
+def _quotient(pk, wire_mono, wire_fft, width, selectors, terms, chs, n,
+              shifted_wires=True):
+    """The quotient's evaluations over the 4n coset, (16, 4n) in the coset's
+    order, by ``terms`` (``kernels._std_terms`` / ``_turbo_terms``) lane by
+    lane.  A key with 4n coset forms (``pk.quarters`` false) is read as it
+    stands; otherwise each coset quarter's evaluations are computed from
+    the monomials (``pk.quarter``) and its lanes evaluated in
+    ``QUARTER_SLICES`` slices; lane k of quarter j is the coset's point
+    4k + j, so the next point of the small domain is lane k + 1 of the
+    same quarter.  Every lane runs the same formula either way.  Without
+    ``shifted_wires`` (no gate of the flavor reads the next row's wires)
+    ``terms`` gets None for them."""
+    wires = [f"w_{i}" for i in range(1, width + 1)]
+    sigmas = [f"sigma_{i}" for i in range(1, width + 1)]
+    if not pk.quarters:
+        w = [wire_fft[x].contiguous() for x in wires]
+        z, l1 = wire_fft["z"], pk.l1_fft
+        ww = [kernels._rolled(x, 4) for x in w] if shifted_wires else None
+        return terms(w, ww,
+                     [pk.sigmas[x].fft for x in sigmas], z,
+                     kernels._rolled(z, 4),
+                     [pk.selectors[x].fft for x in selectors], l1,
+                     kernels._rolled(l1, 20), pk.coset_pts, pk.vanish_scale,
+                     *chs)
+    S = QUARTER_SLICES
+    m = n // S
+    out = torch.empty((16, n, 4), dtype=torch.int32, device=pk.device)
+    for j in range(4):
+        evaluate, pts, l1, vs = pk.quarter(j)
+
+        def sliced(x):
+            """(16, n) -> (S, 16, m): slice s contiguous, lanes s*m .."""
+            return x.view(16, S, m).transpose(0, 1).contiguous()
+
+        w = [sliced(evaluate(wire_mono[x])) for x in wires]
+        sg = [sliced(evaluate(pk.sigmas[x].monomial)) for x in sigmas]
+        q = [sliced(evaluate(pk.selectors[x].monomial)) for x in selectors]
+        z = sliced(evaluate(wire_mono["z"]))
+        del evaluate           # and with it the quarter's powers table
+        l1, pts, vs = sliced(l1), sliced(pts), sliced(vs)
+        for si in range(S):
+            lanes = torch.arange(si * m, (si + 1) * m, device=pk.device)
+
+            def ahead(x, k):
+                """Lanes si*m + k .. of x (wrapping), (16, m)."""
+                i = (lanes + k) % n
+                return x[i // m, :, i % m].t().contiguous()
+
+            out[:, si * m:(si + 1) * m, j] = terms(
+                [x[si] for x in w],
+                [ahead(x, 1) for x in w] if shifted_wires else None,
+                [x[si] for x in sg], z[si], ahead(z, 1), [x[si] for x in q],
+                l1[si], ahead(l1, 5), pts[si], vs[si], *chs)
+        del w, sg, q, z
+    return out.view(16, 4 * n)
+
 
 def _perm_linear_terms(ev, ch, l_start, width):
     """z / sigma_last multiplicands for r(X) and [D]_1
@@ -76,20 +137,12 @@ class StandardFlavor:
     width = 3
 
     @staticmethod
-    def quotient_evals(pk, wire_fft, ch_mont, n):
-        wffts = torch.stack([wire_fft[f"w_{i}"] for i in range(1, 4)], dim=1)
-        sffts = torch.stack(
-            [pk.sigmas[f"sigma_{i}"].fft for i in range(1, 4)], dim=1
-        )
-        qffts = torch.stack(
-            [pk.selectors[q].fft for q in ("q_m", "q_1", "q_2", "q_3", "q_c")],
-            dim=1,
-        )
-        return kernels.std_quotient(
-            wffts, sffts, wire_fft["z"], qffts, pk.l1_fft, pk.coset_pts,
-            pk.vanish_scale, ch_mont["alpha"], ch_mont["beta"],
-            ch_mont["gamma"], ch_mont["delta"], n,
-        )
+    def quotient_evals(pk, wire_mono, wire_fft, ch_mont, n):
+        return _quotient(
+            pk, wire_mono, wire_fft, 3, ("q_m", "q_1", "q_2", "q_3", "q_c"),
+            kernels._std_terms, (ch_mont["alpha"], ch_mont["beta"],
+                                 ch_mont["gamma"], ch_mont["delta"]), n,
+            shifted_wires=False)
 
     @staticmethod
     def selector_linear_scalars(ev, ch):
@@ -128,19 +181,11 @@ class TurboFlavor:
     )
 
     @classmethod
-    def quotient_evals(cls, pk, wire_fft, ch_mont, n):
-        wffts = torch.stack([wire_fft[f"w_{i}"] for i in range(1, 5)], dim=1)
-        sffts = torch.stack(
-            [pk.sigmas[f"sigma_{i}"].fft for i in range(1, 5)], dim=1
-        )
-        qffts = torch.stack(
-            [pk.selectors[q].fft for q in cls.SELECTOR_ORDER], dim=1
-        )
-        return kernels.turbo_quotient(
-            wffts, sffts, wire_fft["z"], qffts, pk.l1_fft, pk.coset_pts,
-            pk.vanish_scale, ch_mont["alphas"], ch_mont["beta"],
-            ch_mont["gamma"], ch_mont["delta"], n,
-        )
+    def quotient_evals(cls, pk, wire_mono, wire_fft, ch_mont, n):
+        return _quotient(
+            pk, wire_mono, wire_fft, 4, cls.SELECTOR_ORDER,
+            kernels._turbo_terms, (ch_mont["alphas"], ch_mont["beta"],
+                                   ch_mont["gamma"], ch_mont["delta"]), n)
 
     @staticmethod
     def selector_linear_scalars(ev, ch):

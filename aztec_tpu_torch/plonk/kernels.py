@@ -1,8 +1,10 @@
 """Prover-round device kernels of Standard PLONK and TurboPlonk.
 
 Port of aztec_tpu/plonk/kernels.py but its lookup, MiMC and elliptic
-kernels: ``grand_product``, ``_perm_quotient``, ``std_quotient``,
-``turbo_quotient`` (with ``_turbo_terms``), ``linear_combination``,
+kernels: ``grand_product``, ``_perm_quotient``, the Standard quotient
+(``_std_terms``) and the Turbo quotient (``_turbo_terms``; both take their
+operands lane by lane, so the prover evaluates them over the 4n coset or a
+quarter of it, ``flavors._quotient``), ``linear_combination``,
 ``sigma_from_mapping`` and ``vanishing_scale_table``.  Every field op goes through the K1 wrappers
 (``ff/field_kernels.py``), so on the card each is one elementwise kernel
 launch; the associative scans of the reference become Hillis-Steele scans
@@ -40,23 +42,35 @@ def _sub(a, b):
     return fk.sub_mod(a, b, FR)
 
 
+def _cols(x):
+    """A (16, W, m) stack or a sequence of (16, m) planes -> a list of W
+    planes (a stack's columns are views, nothing is copied)."""
+    return list(x.unbind(1)) if torch.is_tensor(x) else list(x)
+
+
+def _rolled(x, step: int):
+    """x at the next point of the small domain: the 4n coset order holds
+    the small domain's points every 4 entries, one coset quarter every 1."""
+    return torch.roll(x, -step, dims=1)
+
+
 def grand_product(wires, sigmas, beta, gamma, omega_pows, randoms, n: int):
     """Permutation grand product Z(X) in lagrange form, blinded.
 
-    wires/sigmas: (16, W, n) stacks; beta/gamma: (16, 1); omega_pows:
-    (16, n); randoms: (16, 3).  Z[0] = 1, Z[i] = prod_{j<i} num_j/den_j;
-    blinding written to indices n-3 .. n-1
+    wires/sigmas: (16, W, n) stacks or W (16, n) planes each; beta/gamma:
+    (16, 1); omega_pows: (16, n); randoms: (16, 3).  Z[0] = 1, Z[i] =
+    prod_{j<i} num_j/den_j; blinding written to indices n-3 .. n-1
     (ref: permutation_widget_impl.hpp:47-314)."""
-    dev = wires.device
-    width = wires.shape[1]
+    wires, sigmas = _cols(wires), _cols(sigmas)
+    dev = omega_pows.device
     b_om = _mul(beta, omega_pows)
     num = den = None
-    for k in range(width):
-        wg = _add(wires[:, k], gamma)
+    for k in range(len(wires)):
+        wg = _add(wires[k], gamma)
         id_term = b_om if k == 0 else _mul(_c(FR_COSET_GENERATORS[k - 1], dev),
                                            b_om)
         nk = _add(wg, id_term)
-        dk = _add(wg, _mul(beta, sigmas[:, k]))
+        dk = _add(wg, _mul(beta, sigmas[k]))
         num = nk if num is None else _mul(num, nk)
         den = dk if den is None else _mul(den, dk)
     prefix_num = limb.scan_mul(num, FR, axis=1)
@@ -68,51 +82,49 @@ def grand_product(wires, sigmas, beta, gamma, omega_pows, randoms, n: int):
     return z
 
 
-def _perm_quotient(wffts, sffts, zfft, l1fft, coset_pts, alpha, beta, gamma,
-                   delta):
-    """Permutation-argument quotient term over the 4n coset
-    (ref: permutation_widget_impl.hpp:316-501)."""
-    dev = wffts.device
-    width = wffts.shape[1]
-    b_pts = _mul(beta, coset_pts)
-    zfw = torch.roll(zfft, -4, dims=1)
+def _perm_quotient(w, s, z, zw, l1, lend, pts, alpha, beta, gamma, delta):
+    """Permutation-argument quotient term (ref:
+    permutation_widget_impl.hpp:316-501), lane by lane: w, s lists of
+    wire and sigma evaluations, z / zw Z at the point and the next point of
+    the small domain, l1 / lend L_1 at the point and at the point 5 steps
+    on (L_end: L_1 shifted by k + 1 = 5 roots), pts the points."""
+    dev = pts.device
+    b_pts = _mul(beta, pts)
     num = den = None
-    for k in range(width):
-        wg = _add(wffts[:, k], gamma)
+    for k in range(len(w)):
+        wg = _add(w[k], gamma)
         id_term = b_pts if k == 0 else _mul(_c(FR_COSET_GENERATORS[k - 1], dev),
                                             b_pts)
         nk = _add(wg, id_term)
-        dk = _add(wg, _mul(beta, sffts[:, k]))
+        dk = _add(wg, _mul(beta, s[k]))
         num = nk if num is None else _mul(num, nk)
         den = dk if den is None else _mul(den, dk)
-    num = _mul(num, zfft)
-    den = _mul(den, zfw)
-    # (Z(Xw) - delta) * alpha * L_end;  L_end = L_1 shifted by (k+1) => roll 20
-    t0a = _mul(_mul(_sub(zfw, delta), alpha),
-               torch.roll(l1fft, -(4 + 4 * 4), dims=1))
+    num = _mul(num, z)
+    den = _mul(den, zw)
+    # (Z(Xw) - delta) * alpha * L_end
+    t0a = _mul(_mul(_sub(zw, delta), alpha), lend)
     # (Z(X) - 1) * alpha^2 * L_1
     alpha_sqr = _mul(alpha, alpha)
-    t0b = _mul(_mul(_sub(zfft, _c(1, dev)), alpha_sqr), l1fft)
+    t0b = _mul(_mul(_sub(z, _c(1, dev)), alpha_sqr), l1)
     return _mul(_sub(_add(_add(num, t0a), t0b), den), alpha)
 
 
-def std_quotient(wffts, sffts, zfft, qffts, l1fft, coset_pts, vanish_scale,
-                 alpha, beta, gamma, delta, n: int):
-    """Standard-PLONK quotient evaluations over the 4n coset.
-
-    wffts/sffts: (16, 3, 4n); qffts: (16, 5, 4n) in order qm q1 q2 q3 qc;
-    vanish_scale: 1/Z*_H at each coset point."""
-    w1, w2, w3 = wffts[:, 0], wffts[:, 1], wffts[:, 2]
-    perm = _perm_quotient(wffts, sffts, zfft, l1fft, coset_pts, alpha, beta,
-                          gamma, delta)
-    # arithmetic gate: (qm*w1*w2 + q1*w1 + q2*w2 + q3*w3 + qc) * alpha^4
+def _std_terms(w, ww, s, z, zw, q, l1, lend, pts, vanish_scale, alpha, beta,
+               gamma, delta):
+    """Standard-PLONK quotient, lane by lane (the arguments as
+    ``_turbo_terms``'; ``ww`` unused: no standard gate reads the next
+    row): permutation + arithmetic gate
+    (qm*w1*w2 + q1*w1 + q2*w2 + q3*w3 + qc) * alpha^4."""
+    w1, w2, w3 = w
+    perm = _perm_quotient(w, s, z, zw, l1, lend, pts, alpha, beta, gamma,
+                          delta)
     alpha_sqr = _mul(alpha, alpha)
     alpha_quad = _mul(alpha_sqr, alpha_sqr)
-    arith = _mul(qffts[:, 0], _mul(w1, w2))
-    arith = _add(arith, _mul(qffts[:, 1], w1))
-    arith = _add(arith, _mul(qffts[:, 2], w2))
-    arith = _add(arith, _mul(qffts[:, 3], w3))
-    arith = _add(arith, qffts[:, 4])
+    arith = _mul(q[0], _mul(w1, w2))
+    arith = _add(arith, _mul(q[1], w1))
+    arith = _add(arith, _mul(q[2], w2))
+    arith = _add(arith, _mul(q[3], w3))
+    arith = _add(arith, q[4])
     arith = _mul(arith, alpha_quad)
     return _mul(_add(perm, arith), vanish_scale)
 
@@ -134,32 +146,31 @@ def _x4(x):
     return _dbl2(_dbl2(x))
 
 
-def _turbo_terms(wffts, sffts, zfft, qffts, l1fft, coset_pts, vanish_scale,
-                 alphas, beta, gamma, delta, n: int):
-    """TurboPlonk quotient over the 4n coset: permutation + turbo
-    arithmetic + fixed-base ECC + range + logic, every field op one K1
-    launch (ref: turbo_arithmetic_widget.hpp, turbo_fixed_base_widget.hpp:
-    8-176, turbo_range_widget.hpp, turbo_logic_widget.hpp; alpha schedule
-    per transition_widget.hpp:43-90 — perm ends at alpha^4, arithmetic spans
+def _turbo_terms(w, ww, s, z, zw, q, l1, lend, pts, vanish_scale, alphas,
+                 beta, gamma, delta):
+    """TurboPlonk quotient, lane by lane: permutation + turbo arithmetic +
+    fixed-base ECC + range + logic, every field op one K1 launch (ref:
+    turbo_arithmetic_widget.hpp, turbo_fixed_base_widget.hpp:8-176,
+    turbo_range_widget.hpp, turbo_logic_widget.hpp; alpha schedule per
+    transition_widget.hpp:43-90 — perm ends at alpha^4, arithmetic spans
     alpha^4..5, fixed-base alpha^6..12, range alpha^13..16, logic
     alpha^17..20).
 
-    wffts/sffts: (16, 4, 4n); qffts: (16, 11, 4n) in order qm q1 q2 q3 q4
-    q5 qc qarith qecc qrange qlogic; alphas: (16, >= 21), alpha^1.. ."""
-    dev = wffts.device
+    w / ww: the four wires at each point and at the next point of the small
+    domain; s: the four sigmas; z / zw; q: the 11 selectors in order qm q1
+    q2 q3 q4 q5 qc qarith qecc qrange qlogic; l1 / lend as
+    ``_perm_quotient``; alphas: (16, >= 21), alpha^1.. ."""
+    dev = pts.device
     a = lambda p: alphas[:, p - 1: p]  # alpha^p as (16, 1)
     c = lambda v: _c(v, dev)
 
-    # contiguous once: each K1 launch would copy a strided slice again
-    w1, w2, w3, w4 = (wffts[:, i].contiguous() for i in range(4))
-    w1w, w2w, w3w, w4w = (torch.roll(w, -4, dims=1)
-                          for w in (w1, w2, w3, w4))
-    qm, q1, q2, q3, q4, q5, qc, qarith, qecc, qrange, qlogic = (
-        qffts[:, i].contiguous() for i in range(11))
+    w1, w2, w3, w4 = w
+    w1w, w2w, w3w, w4w = ww
+    qm, q1, q2, q3, q4, q5, qc, qarith, qecc, qrange, qlogic = q
     one = c(1)
 
-    perm = _perm_quotient(wffts, sffts, zfft, l1fft, coset_pts, a(1), beta,
-                          gamma, delta)
+    perm = _perm_quotient(w, s, z, zw, l1, lend, pts, a(1), beta, gamma,
+                          delta)
 
     # ---- turbo arithmetic (alpha^4, alpha^5) --------------------------------
     arith = _mul(qm, _mul(_mul(w1, w2), qarith))
@@ -273,19 +284,13 @@ def _turbo_terms(wffts, sffts, zfft, qffts, l1fft, coset_pts, vanish_scale,
     return _mul(total, vanish_scale)
 
 
-def turbo_quotient(wffts, sffts, zfft, qffts, l1fft, coset_pts, vanish_scale,
-                   alphas, beta, gamma, delta, n: int):
-    """TurboPlonk quotient evaluations over the 4n coset (``_turbo_terms``)."""
-    return _turbo_terms(wffts, sffts, zfft, qffts, l1fft, coset_pts,
-                        vanish_scale, alphas, beta, gamma, delta, n)
-
-
 def linear_combination(stack, scalars):
-    """sum_k scalars[:, k] * stack[:, k, :] -> (16, n); stack (16, k, n),
-    scalars (16, k), Montgomery in and out."""
+    """sum_k scalars[:, k] * stack[k] -> (16, n); stack a (16, k, n) stack
+    or a sequence of k (16, n) planes, scalars (16, k), Montgomery in and
+    out."""
     acc = None
-    for i in range(stack.shape[1]):
-        y = _mul(stack[:, i], scalars[:, i:i + 1])
+    for i, p in enumerate(_cols(stack)):
+        y = _mul(p, scalars[:, i:i + 1])
         acc = y if acc is None else _add(acc, y)
     return acc
 
@@ -302,23 +307,29 @@ def sigma_from_mapping(next_row, factor_idx, omega_pows, n: int):
     return _mul(root, f)
 
 
-def vanishing_scale_table(small_n: int, large_root: int, small_root: int,
-                          generator: int, k_cut: int = 4, device="cuda"):
-    """(coset_pts, scale): the 4n coset points g W^i and 1/Z*_H(g W^i), with
-    Z*_H(x) = (x^n - 1) / prod_{j=1..k} (x - w^{n-j})
-    (ref: polynomial_arithmetic.cpp:628-725).  Built once per key."""
-    W = powers_table(mont_plane(large_root, device), 4 * small_n)
-    pts = _mul(_c(generator, device), W)
+def vanishing_scale(pts, small_n: int, small_root: int, k_cut: int = 4):
+    """1/Z*_H at each of ``pts``, with Z*_H(x) = (x^n - 1) /
+    prod_{j=1..k} (x - w^{n-j}) (ref: polynomial_arithmetic.cpp:628-725)."""
+    dev = pts.device
     xn = limb.mont_pow(pts, np.array([(small_n >> i) & 1
                                       for i in range(small_n.bit_length())]),
                        FR)
-    den = _sub(xn, _c(1, device))
+    den = _sub(xn, _c(1, dev))
     num = None
     root_inv = pow(small_root, -1, FR_MOD)
     w_pow = root_inv
     for _ in range(k_cut):
-        term = _sub(pts, _c(w_pow, device))
+        term = _sub(pts, _c(w_pow, dev))
         num = term if num is None else _mul(num, term)
         w_pow = w_pow * root_inv % FR_MOD
     inv_den = limb.batch_inv_mont(den, FR, axis=1)
-    return pts, _mul(num, inv_den)
+    return _mul(num, inv_den)
+
+
+def vanishing_scale_table(small_n: int, large_root: int, small_root: int,
+                          generator: int, k_cut: int = 4, device="cuda"):
+    """(coset_pts, scale): the 4n coset points g W^i and 1/Z*_H(g W^i)
+    (``vanishing_scale``).  Built once per key."""
+    W = powers_table(mont_plane(large_root, device), 4 * small_n)
+    pts = _mul(_c(generator, device), W)
+    return pts, vanishing_scale(pts, small_n, small_root, k_cut)

@@ -137,25 +137,26 @@ class Prover:
         beta = self._fr(self._challenge("beta", 0))[:, None]
         gamma = self._fr(self._challenge("beta", 1))[:, None]
 
-        wires = torch.stack(
-            [self.wires_lagrange[f"w_{i}"] for i in range(1, self.width + 1)],
-            dim=1,
-        )
-        sigmas = torch.stack(
-            [self.key.sigmas[f"sigma_{i}"].lagrange
-             for i in range(1, self.width + 1)],
-            dim=1,
-        )
+        wires = [self.wires_lagrange[f"w_{i}"]
+                 for i in range(1, self.width + 1)]
+        sigmas = [self.key.sigmas[f"sigma_{i}"].lagrange
+                  for i in range(1, self.width + 1)]
         randoms = torch.stack([self._fr(self.rng()) for _ in range(3)], dim=1)
         z_lag = kernels.grand_product(
             wires, sigmas, beta, gamma, self.key.omega_pows, randoms, self.n
         )
+        # no later round reads the wires' lagrange forms
+        del wires
+        self.wires_lagrange = {}
         z_mono = pfft.ifft(z_lag, self.key.small_domain)
         self.wire_mono["z"] = z_mono
         self._commit(z_mono, "Z")
         if hasattr(self.flavor, "third_round_extra"):
             self.flavor.third_round_extra(self)
 
+        if self.key.quarters:
+            # the quotient evaluates the monomials by coset quarters
+            return
         for tag in [f"w_{i}" for i in range(1, self.width + 1)] + ["z"]:
             self.queue.add_to_queue(WorkItem(
                 WorkType.FFT, tag,
@@ -186,9 +187,10 @@ class Prover:
             "delta": self._fr(delta)[:, None],
         }
         quotient_evals = self.flavor.quotient_evals(
-            self.key, self.wire_fft, ch_mont, self.n
+            self.key, self.wire_mono, self.wire_fft, ch_mont, self.n
         )
         tq = pfft.coset_ifft(quotient_evals, self.key.large_domain)
+        del quotient_evals
         self.quotient_mono = tq
         n = self.n
         for i in range(self.width - 1):
@@ -233,8 +235,12 @@ class Prover:
         for name, v in zip(at_zeta_omega, sevals):
             t.add_element(name + "_omega", fr_to_bytes(v))
 
-        zp_4n = powers_table(self._fr(zeta), 4 * n)
-        t_eval = self._eval_many([self.quotient_mono], zp_4n)[0]
+        # t(zeta) = sum_i zeta^(i n) t_i(zeta) over the quotient's four
+        # pieces of n coefficients: the powers of zeta up to n suffice
+        zeta_n = pow(zeta, n, M)
+        t_eval = sum(v * pow(zeta_n, i, M) for i, v in enumerate(
+            self._eval_many([self.quotient_mono[:, i * n:(i + 1) * n]
+                             for i in range(4)], zp_n))) % M
 
         # linearisation polynomial r(X) (linearised settings only)
         if s.use_linearisation:
@@ -255,7 +261,7 @@ class Prover:
             scalars = [z_mult, sigma_mult] + [
                 sel_scalars[k] for k in sel_scalars
             ]
-            lin_stack = torch.stack([self._poly(p) for p in names], dim=1)
+            lin_stack = [self._poly(p) for p in names]
             lin_scalars = torch.stack([self._fr(v) for v in scalars], dim=1)
             self.linear_mono = kernels.linear_combination(lin_stack, lin_scalars)
             r_eval = self._eval_many([self.linear_mono], zp_n)[0]
@@ -299,7 +305,7 @@ class Prover:
             open_scalars.append(nu("r"))
 
         opening = kernels.linear_combination(
-            torch.stack(open_polys, dim=1),
+            open_polys,
             torch.stack([self._fr(v) for v in open_scalars], dim=1),
         )
         # standard plonk: the (n+1)-th coefficient zeta^{2n} * t[3n]
@@ -319,7 +325,7 @@ class Prover:
         self._commit(w_zeta, "PI_Z")
 
         shifted = kernels.linear_combination(
-            torch.stack(shifted_polys, dim=1),
+            shifted_polys,
             torch.stack([self._fr(v) for v in shifted_scalars], dim=1),
         )
         zpw_n = powers_table(self._fr(zeta_omega), n)

@@ -3,6 +3,12 @@
 Port of aztec_tpu/plonk/proving_key.py: per polynomial the monomial form and
 the 4n coset-FFT form as Montgomery limb planes on the key's device, plus
 the quotient kernel's tables (L_1 on the coset, evaluation points, 1/Z*_H).
+
+From ``QUARTER_MIN_N`` up the key keeps no 4n form: the 4n coset is four
+quarters of n points, quarter j the n-point coset with generator
+g w_4n^j at the coset's indices 4k + j (the reference's
+``work_queue.small_fft_quarter`` decomposition), and the prover evaluates
+the quotient one quarter at a time from the monomials (``quarter``).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from ..curves import group
 from ..curves.io import planes_to_ints
 from ..curves.spec import BN254_G1
 from ..ff import FR, limb
+from ..ff import field_kernels as fk
 from ..ff.bn254 import FR_MOD
 from ..msm.pippenger import msm
 from ..numeric.bigint import ints_to_limbs
@@ -26,14 +33,32 @@ from . import kernels
 from .manifests import StandardSettings, STANDARD
 
 
+# Subgroup sizes from which the key stores no 4n coset form and the quotient
+# is evaluated by coset quarters; below it the stored forms save the
+# quarters' FFTs of every proof.  Measured on an H100 (chip_smoke.py
+# --quarters, --tower): the stored plan at 2^20 (Standard) peaks at 9.0 kB
+# a point, the quarters at 2^24 (Turbo) at 4.0 kB, and a stored Turbo key
+# adds about 4.9 kB a point to the quarters', so a stored Turbo prover would
+# take about 38 GB at 2^22 and 75 GB at 2^23 of the card's 80.  No circuit
+# between 2^20 and 2^24 is served or measured: 2^21 is a choice within that
+# gap, not a measured limit.
+QUARTER_MIN_N = 1 << 21
+
+
 def fr_mont(v: int, device) -> torch.Tensor:
     return mont_plane(v, device)
 
 
 def ints_to_mont(vals, device) -> torch.Tensor:
-    """Canonical int list -> (16, n) Montgomery planes on ``device``."""
-    planes = ints_to_limbs([v * FR.R % FR_MOD for v in vals])
-    return torch.as_tensor(planes.astype(np.int32), device=device)
+    """Canonical int list -> (16, n) Montgomery planes on ``device``.  Each
+    distinct value is converted once (to the device as 16-bit limbs, into
+    Montgomery form by one ``mont_mul`` by R^2), then gathered into
+    place: a selector list holds few distinct values."""
+    pos = {v: i for i, v in enumerate(dict.fromkeys(vals))}
+    idx = np.fromiter(map(pos.__getitem__, vals), np.int64, len(vals))
+    uniq = torch.as_tensor(ints_to_limbs(pos).astype(np.int32), device=device)
+    return limb.to_mont(uniq, FR).index_select(
+        1, torch.from_numpy(idx).to(device))
 
 
 @dataclasses.dataclass
@@ -75,6 +100,10 @@ class ProvingKey:
                                   device=self.device)
         l1_lagrange[:, 0] = fr_mont(1, self.device)
         l1_mono = pfft.ifft(l1_lagrange, self.small_domain)
+        self.quarters = n >= QUARTER_MIN_N
+        if self.quarters:
+            self.l1_mono = l1_mono
+            return
         self.l1_fft = pfft.coset_fft(self._extend(l1_mono), self.large_domain)
         self.coset_pts, self.vanish_scale = kernels.vanishing_scale_table(
             n,
@@ -99,9 +128,30 @@ class ProvingKey:
                           lagrange if keep_lagrange else None)
 
     def add_monomial(self, kind: str, name: str, mono, lagrange=None):
-        f = pfft.coset_fft(self._extend(mono), self.large_domain)
+        f = (None if self.quarters
+             else pfft.coset_fft(self._extend(mono), self.large_domain))
         store = PolyStore(monomial=mono, fft=f, lagrange=lagrange)
         (self.selectors if kind == "selector" else self.sigmas)[name] = store
+
+    def quarter(self, j: int):
+        """Coset quarter j (the 4n coset's points g W^(4k + j), W = w_4n):
+        (evaluate, points, L_1, 1/Z*_H) over its n points, where
+        ``evaluate`` maps an (16, n) monomial to its n evaluations (the
+        coefficients scaled by (g W^j)^i, then one n-point FFT)."""
+        n = self.n
+        dev = self.device
+        cj = (self.small_domain.generator
+              * pow(self.large_domain.root, j, FR_MOD) % FR_MOD)
+        scale = powers_table(fr_mont(cj, dev), n)
+
+        def evaluate(mono):
+            return pfft.fft(fk.mont_mul(mono, scale, FR), self.small_domain)
+
+        pts = fk.mont_mul(fr_mont(cj, dev)[:, None], self.omega_pows, FR)
+        vs = kernels.vanishing_scale(
+            pts, n, self.small_domain.root,
+            self.settings.num_roots_cut_out_of_vanishing_polynomial)
+        return evaluate, pts, evaluate(self.l1_mono), vs
 
     def commit(self, mono):
         """One Kate commitment (host affine ints or None)."""

@@ -5,9 +5,9 @@ account registration (account), direct exits (escape_hatch), and the
 recursive aggregation circuits (rollup, root_rollup) that batch them for
 on-chain verification.
 
-Port of aztec_tpu/rollup/'s transaction circuits: ``join_split``,
-``account``, their notes, the world state and ``circuit_data``; the
-rollup and root-rollup circuits, ``escape_hatch``, ``create_rollup``,
-``tree_updates``, ``inner_proof_data`` and ``serialize`` are not ported
-yet.
+Port of aztec_tpu/rollup/: the transaction circuits (``join_split``,
+``account``, their notes, the world state, ``circuit_data``) and the
+aggregation circuits (``rollup_circuit``, ``root_rollup_circuit``, with
+``tree_updates``, ``inner_proof_data``, ``serialize``, ``create_rollup``);
+``escape_hatch`` is not ported yet.
 """

@@ -17,6 +17,7 @@ Port of aztec_tpu/srs/reference_string.py:
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -26,9 +27,10 @@ from ..curves.fixed_base import fixed_base_mul
 from ..curves.io import affine_to_device
 from ..curves.pairing import g1_mul
 from ..curves.spec import BN254_G1
-from ..ff import limb
+from ..ff import FR, limb
 from ..ff.bn254 import FR_MOD
 from ..numeric.bigint import int_to_limbs, ints_to_limbs, limbs_to_int
+from ..poly.domain import mont_plane, powers_table
 from . import io as srs_io
 
 DEV_TAU = 0xB0B0CAFE12345678DEADBEEF
@@ -89,8 +91,18 @@ class FakeReferenceStringFactory:
     def __init__(self, tau: int | None = None, device="cuda"):
         self.tau = tau if tau is not None else DEV_TAU
         self.device = torch.device(device)
+        self._device_srs = None  # the largest device-computed SRS so far
+        self.last_seconds = 0.0  # of the last get_prover_srs, synchronised
 
     def get_prover_srs(self, n: int) -> ProverReferenceString:
+        t = time.perf_counter()
+        srs = self._prover_srs(n)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.last_seconds = time.perf_counter() - t
+        return srs
+
+    def _prover_srs(self, n: int) -> ProverReferenceString:
         if (self.tau == DEV_TAU and n <= TABLE_MAX
                 and os.path.exists(POINT_TABLE)):
             X, Y = load_point_table(n, self.tau)
@@ -112,15 +124,21 @@ class FakeReferenceStringFactory:
 
     def device_prover_srs(self, n: int) -> ProverReferenceString:
         """tau^i * G by ``fixed_base_mul`` on the device, then one batched
-        normalisation to affine."""
-        sc = torch.as_tensor(ints_to_limbs(_powers(self.tau, n, 0))
-                             .astype(np.int32), device=self.device)
+        normalisation to affine; the powers of tau are a device table.  The
+        factory keeps the largest such SRS and serves smaller requests from
+        its first points."""
+        got = self._device_srs
+        if got is not None and got.size >= n:
+            return ProverReferenceString(got.X[:, :n], got.Y[:, :n], n)
+        sc = limb.from_mont(powers_table(mont_plane(self.tau, self.device), n),
+                            FR)
         x, y, inf = group.to_affine(fixed_base_mul(sc, BN254_G1),
                                     BN254_G1.field)
         if bool(inf.any()):
             raise ValueError("an SRS point is at infinity: tau is a root of "
                              "unity of small order")
-        return ProverReferenceString(x, y, n)
+        self._device_srs = ProverReferenceString(x, y, n)
+        return self._device_srs
 
     def get_verifier_srs(self) -> VerifierReferenceString:
         return VerifierReferenceString(tower.g2_mul(self.tau, tower.G2_GEN))

@@ -4,9 +4,10 @@ witnesses meet) and the in-circuit Pedersen hash over the Turbo fixed-base
 gates (``pedersen_circuit``), and what the rollup's transaction circuits
 use: ``uint``/``uint32``, ``byte_array``, the in-circuit Blake2s, the
 recursion transcript, native-group points, Schnorr verification and Merkle
-membership.  Port of aztec_tpu/stdlib/; not ported yet: ``bigfield``,
-``biggroup`` and ``recursion_verifier`` (the rollup circuits' recursion),
-``bit_array``, ``packed_byte_array``, ``sha256_circuit`` and
+membership, and the rollup circuits' recursion: ``bigfield`` (Fq in Fr
+circuits), ``biggroup`` (BN254 G1 over it) and ``recursion_verifier``
+(an unrolled proof verified in-circuit).  Port of aztec_tpu/stdlib/; not
+ported yet: ``bit_array``, ``packed_byte_array``, ``sha256_circuit`` and
 ``mimc_circuit``.
 """
 

@@ -48,6 +48,23 @@ class Point:
         return iter((self.x, self.y))
 
 
+def _walk(start, steps):
+    """[start, start + s_0, start + s_0 + s_1, ...] in affine coordinates:
+    the sums in Jacobian coordinates, normalised together (one inversion),
+    or by affine adds where a sum meets infinity."""
+    jac = [(start[0], start[1], 1)]
+    for pt in steps:
+        jac.append(pd._j_add(jac[-1], pt))
+        if jac[-1] is None:
+            out = [start]
+            for q in steps:
+                out.append(pd.g_add(out[-1], q))
+            return out
+    zinv = pd._batch_inverse([z for _, _, z in jac])
+    return [(X * zi * zi % pd.P, Y * zi * zi * zi % pd.P)
+            for (X, Y, _), zi in zip(jac, zinv)]
+
+
 def _ladder_walk(inp: FieldT, num_bits: int, full_ladder, skew_point,
                  conditional_scalar_check: bool):
     """Shared fixed-base gate walk.  Returns (Point, accumulator_witnesses).
@@ -75,8 +92,9 @@ def _ladder_walk(inp: FieldT, num_bits: int, full_ladder, skew_point,
     accumulator_offset = pow(pow(2, initial_exponent, M), -1, M)
     origin_acc = (1, (accumulator_offset + 1) % M)
 
-    mult_transcript = [origin_1 if skew else origin_0]
+    start = origin_1 if skew else origin_0
     acc_transcript = [origin_acc[1] if skew else origin_acc[0]]
+    steps = []
     for i in range(n):
         entry = wnaf[i + 1]
         digit3 = (entry & 0xFFFFFF) == 1
@@ -87,7 +105,8 @@ def _ladder_walk(inp: FieldT, num_bits: int, full_ladder, skew_point,
             scalar_add = -scalar_add
             pt = pd.g_neg(pt)
         acc_transcript.append((4 * acc_transcript[i] + scalar_add) % M)
-        mult_transcript.append(pd.g_add(mult_transcript[i], pt))
+        steps.append(pt)
+    mult_transcript = _walk(start, steps)
 
     init = (
         origin_0[0],

@@ -24,7 +24,7 @@ from ..transcript.manifest import Manifest
 from .field_t import FieldT
 from .byte_array import field_to_bytes, bytes_to_uint32_words_le
 from .blake2s_circuit import blake2s_words
-from .pedersen_circuit import hash_single
+from .pedersen_circuit import compress_many
 from .uint32 import UInt32
 
 PRNG_SIZE = 32
@@ -33,8 +33,10 @@ CHALLENGE_BYTES = 16
 
 def _compress_buffer(ctx, buf: List[FieldT]) -> FieldT:
     """Pedersen-compress in-circuit bytes: 31-byte big-endian chunks to
-    field elements, encrypt_native-style sum over generator indices
-    (ref: pedersen.cpp compress_native_buffer_to_field)."""
+    field elements, their hashes summed over generator indices (ref:
+    pedersen.cpp compress_native_buffer_to_field).  A chunk of value 0
+    hashes to the point at infinity and adds nothing, as in the native
+    transcript: the sum handles it (``compress_many``'s edge cases)."""
     chunks = []
     for i in range(0, len(buf), 31):
         part = buf[i : i + 31]
@@ -42,15 +44,7 @@ def _compress_buffer(ctx, buf: List[FieldT]) -> FieldT:
         for b in part:
             acc = acc * 256 + b
         chunks.append(acc)
-    # encrypt: sum of hash_single(chunk_i, i); incomplete adds
-    pts = [hash_single(ch, i) for i, ch in enumerate(chunks)]
-    x, y = pts[0]
-    for (x2, y2) in pts[1:]:
-        lam = (y2 - y) / (x2 - x)
-        x3 = lam * lam - x2 - x
-        y3 = lam * (x - x3) - y
-        x, y = x3, y3
-    return x.normalize()
+    return compress_many(chunks)
 
 
 def _blake2s_bytes(ctx, buf: List[FieldT]) -> List[FieldT]:

@@ -49,8 +49,8 @@ read just after:
    under a fixed counter rng is printed, to compare commits' bytes;
 5. warm proofs of that circuit with the port's MSM paths (ragged tail
    mixed-added into the buckets, a barrier's MSMs batched) and the
-   reference's (tail padded to a chunk, one MSM at a time), same bytes
-   (timing only: its launches are not counted);
+   reference's (tail padded to a chunk, one MSM at a time), same bytes,
+   three interleaved rounds (timing only: its launches are not counted);
 5b. the Turbo path: the committed small TurboPlonk vectors (the JAX
     package's proofs of tests/test_turbo.py's circuit, keccak and
     unrolled, and of a 2^10-gate circuit with an in-circuit Pedersen
@@ -59,9 +59,10 @@ read just after:
     Turbo barrier's widths (32 rows x 2^16, 32 x 4096 lanes); then, as a
     path, aztec_tpu_torch/tools/turbo_circuit.py's 2^17-gate circuit
     (every Turbo widget) checked by ``check_turbo``, keyed, and proved
-    four times with the keccak prover and four times unrolled, each proof
-    verified and a tamper rejected (set-up seconds, warm proof seconds and
-    launches by kernel printed); last, in a process of its own
+    twice with the keccak prover and twice unrolled, each proof verified
+    and a tamper rejected (set-up seconds, warm proof seconds, launches by
+    kernel and the peak device memory of the key and its keccak proofs
+    printed); last, in a process of its own
     (``--turbo-profile``), a warm Turbo proof under torch.profiler: kernel
     time, idle share, the largest kernels;
 5c. the rollup's transaction proofs: the committed ``join_split_d3``
@@ -72,7 +73,7 @@ read just after:
     byte; then, as paths, the join-split at the production
     data-tree depth 32 (two real input notes in a ``WorldState`` sparse
     tree, 2^17 gates) built, its 14 public inputs held against the tx's
-    native values, checked by ``check_turbo``, keyed and proved five times
+    native values, checked by ``check_turbo``, keyed and proved twice
     unrolled, each proof verified and a tamper rejected (set-up seconds by
     span, warm proof seconds, launches by kernel printed), then once under
     torch.profiler (kernel time, the device's idle share), and the account
@@ -81,11 +82,24 @@ read just after:
     aztec_tpu_torch.serving.proof_worker``, its fixtures in a fresh
     temporary directory): the ready byte, demo proofs 0x101 and 0x100 at
     2^10 gates verified, 0x202 failed, the join-split and account VKs
-    (0x200, 0x201) whose stored padding proofs verify, an id-0 frame failed
-    with the next request still served, an unknown id failed and the worker
-    exiting 0, each request's seconds; its imports (``-X importtime``) hold
-    neither JAX nor the JAX package; then the HTTP server over its own
-    worker: GET /status and POST /create-proof;
+    (0x200, 0x201) whose stored padding proofs verify, an id-0 frame that
+    does not parse failed with the next request still served, an unknown
+    id failed and the worker exiting 0, each request's seconds; its imports
+    (``-X importtime``) hold neither JAX nor the JAX package; then the HTTP
+    server over its own worker: GET /status and POST /create-proof;
+5d. the rollup tower through the proof worker, a subprocess with a fresh
+    fixture directory, as aztec_tpu_torch/tools/rollup_tower.py drives it
+    (one tx, ``WorldState(6, 16, 4)``): the join-split padding proof, id 0
+    (the inner rollup, 8.4M gates at 2^24, unrolled Turbo, its in-circuit
+    verifier over the padding proof), 0x202 (its VK, against which the
+    inner proof verifies here), id 1 (the root rollup, 8.8M gates at 2^24,
+    Turbo with the Keccak transcript); the root proof verified again here
+    against the VK the worker wrote, its recursive accumulator folded into
+    the pairing, and a tamper rejected; each circuit's gates, subgroup,
+    build, SRS, key, VK, witness and proof seconds, launches by kernel and
+    the worker's peak device memory; both proofs' sha256; the worker's
+    imports hold neither JAX nor the JAX package; the worker's launches
+    join the path counts;
 6. the MSM engine at full width: phase 3's MSM through
    ``msm(..., MSMConfig(c=16, block=64, bucket_block=64, glv=True))`` (the
    packed branch: K3 and K4 once a round) and through the staged rounds,
@@ -98,7 +112,8 @@ read just after:
 8. the 2^20-point dev SRS from ``fixed_base_mul`` (K2 ``proj_dbl``)
    against the committed table, bit for bit;
 9. the chain circuit at 2^20 gates, whose SRS of 2^20 + 1 points comes
-   from ``fixed_base_mul``: proved, verified, a tamper rejected;
+   from ``fixed_base_mul``: proved, verified, a tamper rejected (the peak
+   device memory of the key and one proof printed, as in phase 4);
 10. the microbenchmarks (``aztec_tpu_torch.tools``) as a user runs them,
     at widths that fill the card: every ``vpu_microbench`` kind at rows 4
     and 16 over 8192 tiles' worth of columns, with its element-ops per
@@ -123,6 +138,18 @@ at the small tier's width and wider), then the profiled warm 2^17 proof
 and the ranking, and last the lazy kernels on unreduced lanes (so an older
 commit prints its times before its kernels fail that check).  Copied beside an older checkout's package, it measures that
 commit's kernels with the same script, on the same card.
+
+``python3 chip_smoke.py --tower`` runs phase 5d alone; ``--quarters`` the
+prover's two memory plans on the 2^17 Turbo circuit (keccak and unrolled)
+and the 2^20 chain circuit: keyed and proved under the counter rng with
+the key's 4n coset forms and by coset quarters, the same bytes, each
+plan's key and proof seconds and peak device memory.
+
+``python3 chip_smoke.py --warm-proofs`` times the stored-coset prover's
+warm proofs (2^17 Standard, 2^17 Turbo keccak and unrolled, the depth-32
+join-split, 2^20 Standard), then one proof of each by round and under
+cProfile.  Copied beside an older checkout's package and run from each
+checkout in turns, it compares the two commits' proofs on one card.
 """
 
 from __future__ import annotations
@@ -305,13 +332,16 @@ WINDOW = 16
 # it proves first, and the warm proofs a flavor it times.
 TURBO_BATCH = 4
 TURBO_VECTORS = ("turbo_drive", "unrolled_turbo_drive", "turbo_pedersen")
-TURBO_WARM = 3
+TURBO_WARM = 1
 # Phase 5c: the rollup's join-split at the production data-tree depth
 # (rollup/constants.py: 2^17 gates), its warm unrolled proofs, the account
 # circuit at the same depth, and the proof worker's demo circuits' size.
 JOIN_SPLIT_DEPTH = 32
-JOIN_SPLIT_WARM = 4
+JOIN_SPLIT_WARM = 1
 WORKER_GATES = 1 << 10
+TOWER_TXS = 1          # the rollup tower's txs (tools/rollup_tower.py's)
+TOWER_TIMEOUT = 900    # seconds the tower's worker may take
+WARM_REPS = 5          # warm proofs a case of ``--warm-proofs``
 
 
 def log(msg: str) -> None:
@@ -1758,6 +1788,8 @@ def main_path(log2n: int = 17, device: str = "cuda", profile: bool = True):
 
     from aztec_tpu_torch.ff import field_kernels as fk
 
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     c = build_chain(log2n, device)
     prover = c.create_prover()
@@ -1780,6 +1812,8 @@ def main_path(log2n: int = 17, device: str = "cuda", profile: bool = True):
     proof = prover.construct_proof()
     sync()
     cold = time.perf_counter() - t0
+    if device == "cuda":
+        peak_memory(f"main path 2^{log2n}: the key and one proof", c)
     prover = c.create_prover()
     before, elems_before = dict(fk.LAUNCHES), dict(fk.ELEMS)
     t0 = time.perf_counter()
@@ -1823,6 +1857,18 @@ def main_path(log2n: int = 17, device: str = "cuda", profile: bool = True):
     return c, per_proof, cost
 
 
+def peak_memory(label: str, c) -> None:
+    """Print the device's peak allocated bytes since the last reset, and
+    per point of the composer's subgroup."""
+    import torch
+
+    peak = torch.cuda.max_memory_allocated()
+    n = c.subgroup_size()
+    log(f"{label}: peak device memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB), {peak / n:.0f} bytes a point of the "
+        f"subgroup {n}")
+
+
 def counter_rng(seed: int):
     """Deterministic blinding, so that proofs can be compared byte for byte."""
     from aztec_tpu_torch.ff.bn254 import FR_MOD
@@ -1835,7 +1881,7 @@ def counter_rng(seed: int):
     return rng
 
 
-def compare_msm_paths(c, reps: int = 10, device: str = "cuda") -> None:
+def compare_msm_paths(c, reps: int = 3, device: str = "cuda") -> None:
     """Phase 5: warm proofs with the port's MSM paths and the reference's.
 
     The port mixed-adds a ragged tail of a few points into the buckets
@@ -2063,13 +2109,20 @@ def turbo_path(log2n: int = 17, device: str = "cuda"):
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     label = f"turbo 2^{log2n}"
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     c = keyed_circuit(label, lambda: build_turbo(log2n, device), sync)
     used = {s: sum(1 for v in getattr(c, s) if v) for s in c.SELECTORS}
     if not all(used.values()):
         raise AssertionError(f"{label}: selectors never set: {used}")
     log(f"{label}: rows a selector is non-zero on: {json.dumps(used)}")
-    return {flavor: prove(label, c, 1 + TURBO_WARM, sync, flavor)[0]
-            for flavor in ("keccak", "unrolled")}
+    launches = {}
+    for flavor in ("keccak", "unrolled"):
+        launches[flavor] = prove(label, c, 1 + TURBO_WARM, sync, flavor)[0]
+        if device == "cuda" and flavor == "keccak":
+            peak_memory(f"{label}: the key and {1 + TURBO_WARM} keccak "
+                        "proofs", c)
+    return launches
 
 
 def turbo_profile(log2n: int = 17) -> int:
@@ -2409,6 +2462,316 @@ def worker_path(device: str = "cuda") -> None:
     shutil.rmtree(tmp, ignore_errors=True)
 
 
+def quarter_plans(device: str = "cuda") -> None:
+    """``--quarters``: the prover's two memory plans on one card.  The
+    2^17 Turbo circuit (proved keccak and unrolled) and the 2^20 chain
+    circuit (Standard) are keyed and proved under the counter rng once with
+    the key's 4n coset forms and once by coset quarters
+    (``proving_key.QUARTER_MIN_N`` lowered to 1); the bytes must agree.
+    Prints each plan's key and proof seconds and its peak device
+    memory."""
+    import torch
+
+    from aztec_tpu_torch.plonk import proving_key
+
+    sync = torch.cuda.synchronize
+    cases = (("turbo 2^17", lambda: build_turbo(17, device),
+              ("keccak", "unrolled")),
+             ("chain 2^20", lambda: build_chain(20, device), ("keccak",)))
+    rule = proving_key.QUARTER_MIN_N
+    try:
+        for label, build, flavors in cases:
+            digests = {}
+            for plan, qmin in (("stored", rule), ("quarters", 1)):
+                proving_key.QUARTER_MIN_N = qmin
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                c = build()
+                t0 = time.perf_counter()
+                pk = c.compute_proving_key()
+                sync()
+                spans = {"key_s": time.perf_counter() - t0}
+                if pk.quarters != (plan == "quarters"):
+                    raise AssertionError(f"{label}: not the {plan} plan")
+                for flavor in flavors:
+                    prover = (c.create_prover() if flavor == "keccak"
+                              else c.create_unrolled_prover())
+                    prover.rng = counter_rng(SEED)
+                    t0 = time.perf_counter()
+                    proof = prover.construct_proof()
+                    sync()
+                    spans[f"{flavor}_proof_s"] = time.perf_counter() - t0
+                    digests.setdefault(flavor, set()).add(
+                        hashlib.sha256(proof).hexdigest())
+                log(f"{label} {plan}: "
+                    + " ".join(f"{k}={v:.3f}" for k, v in spans.items()))
+                peak_memory(f"{label} {plan}: the key and "
+                            f"{len(flavors)} proofs", c)
+                del c, pk, prover
+            for flavor, d in digests.items():
+                if len(d) != 1:
+                    raise AssertionError(f"{label} {flavor}: the plans give "
+                                         "different proofs")
+                log(f"{label} {flavor}: both plans give the proof sha256 "
+                    f"{d.pop()}")
+    finally:
+        proving_key.QUARTER_MIN_N = rule
+
+
+def warm_proofs() -> dict:
+    """``--warm-proofs``: each case keyed, proved once cold and WARM_REPS
+    times warm (wall seconds, the device synchronised before and after),
+    then once more with the device synchronised after every round (seconds
+    by round), once under torch.profiler (kernel ms) and once under
+    cProfile (the host functions with the most own time).  Uses only entry
+    points an older checkout has too.  Returns {case and flavor: its
+    numbers}."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    from aztec_tpu_torch.plonk.composer import TurboComposer
+    from aztec_tpu_torch.rollup.join_split import join_split_circuit
+
+    sync = torch.cuda.synchronize
+
+    def join_split():
+        c = TurboComposer(device="cuda")
+        join_split_circuit(c, join_split_tx())
+        return c
+
+    cases = (
+        ("standard_2pow17", lambda: build_chain(17), ("keccak",)),
+        ("turbo_2pow17", lambda: build_turbo(17), ("keccak", "unrolled")),
+        ("join_split_d32", join_split, ("unrolled",)),
+        ("standard_2pow20", lambda: build_chain(20), ("keccak",)))
+    rounds = ("preamble", "first", "second", "third", "fourth", "fifth",
+              "sixth")
+    out = {}
+    for label, build, flavors in cases:
+        c = build()
+        t0 = time.perf_counter()
+        c.compute_proving_key()
+        sync()
+        key_s = time.perf_counter() - t0
+        for flavor in flavors:
+            make = (c.create_prover if flavor == "keccak"
+                    else c.create_unrolled_prover)
+            secs = []
+            for _ in range(1 + WARM_REPS):
+                prover = make()
+                sync()
+                t0 = time.perf_counter()
+                prover.construct_proof()
+                sync()
+                secs.append(time.perf_counter() - t0)
+            prover = make()
+            sync()
+            by_round = {}
+            for r in rounds:
+                t0 = time.perf_counter()
+                getattr(prover, f"execute_{r}_round")()
+                prover.queue.process_queue()
+                sync()
+                by_round[r] = round(time.perf_counter() - t0, 4)
+            busy_ms, _ = profile_proof(c, make)
+            prover = make()
+            sync()
+            prof = cProfile.Profile()
+            prof.enable()
+            prover.construct_proof()
+            sync()
+            prof.disable()
+            stats = pstats.Stats(prof)
+            top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:12]
+            warm = sorted(secs[1:])
+            out[f"{label}_{flavor}"] = {
+                "key_s": round(key_s, 3), "cold_s": round(secs[0], 4),
+                "warm_s": [round(x, 4) for x in secs[1:]],
+                "warm_median_s": warm[len(warm) // 2],
+                "kernel_ms": round(busy_ms, 2), "by_round_s": by_round,
+                "host_top_tottime_s": [
+                    [f"{os.path.basename(f)}:{line}:{fn}", nc, round(tt, 4)]
+                    for (f, line, fn), (_, nc, tt, _, _) in top]}
+            log(f"warm proofs {label} {flavor}: "
+                + json.dumps(out[f"{label}_{flavor}"]))
+        del c
+        torch.cuda.empty_cache()
+    return out
+
+
+def rollup_stats(err_path: str) -> list:
+    """The ``rollup_stats`` records a worker logged, in order."""
+    out = []
+    with open(err_path, errors="replace") as f:
+        for line in f:
+            if line.startswith("rollup_stats "):
+                out.append(json.loads(line.split(" ", 1)[1]))
+    return out
+
+
+def tower_path(device: str = "cuda") -> dict:
+    """Phase 5d: the rollup tower through the port's proof worker, a
+    subprocess under ``-X importtime`` with a fresh fixture directory, as
+    ``aztec_tpu_torch/tools/rollup_tower.py`` drives it
+    (``TOWER_TXS`` txs, ``WorldState(6, 16, 4)``): the join-split padding
+    proof (the worker's depth-6 circuit data, proved here), the ready
+    byte, id 0 over ``create_rollup_tx``'s frame (the inner rollup,
+    unrolled Turbo), 0x202 (its VK, against which the inner proof must
+    verify here), id 1 over ``create_root_rollup_tx``'s frame (the root
+    rollup, Turbo with the Keccak transcript); then, in this process, the
+    root proof verified again with the port's verifier against the VK the
+    worker wrote, its recursive accumulator recovered from the 16
+    public-input limbs and folded into the pairing, and a tampered root
+    rejected.  Prints each circuit's gates, subgroup, set-up and proof
+    seconds, launches by kernel and the worker's peak device memory, and
+    the proofs' sha256.  Returns the launches of this process and of the
+    worker's two requests by kernel."""
+    import gc
+    import hashlib
+    import shutil
+    import struct
+    import tempfile
+
+    import torch
+
+    from aztec_tpu_torch.ff import field_kernels as fk
+    from aztec_tpu_torch.plonk.flavors import TurboFlavor, UnrolledTurboFlavor
+    from aztec_tpu_torch.plonk.verifier import Verifier
+    from aztec_tpu_torch.rollup.circuit_data import join_split_circuit_data
+    from aztec_tpu_torch.rollup.create_rollup import (create_rollup_tx,
+                                                      create_root_rollup_tx)
+    from aztec_tpu_torch.rollup.serialize import (write_rollup_tx,
+                                                  write_root_rollup_tx)
+    from aztec_tpu_torch.rollup.world_state import WorldState
+    from aztec_tpu_torch.utils import fixtures
+
+    tmp = tempfile.mkdtemp(prefix="smoke_tower_")
+    env = dict(os.environ, AZTEC_FIXTURES=tmp, PYTHONPATH=ROOT)
+    err_path = os.path.join(tmp, "worker_stderr.txt")
+    saved = os.environ.get("AZTEC_FIXTURES")
+    os.environ["AZTEC_FIXTURES"] = tmp
+    secs = {}
+    try:
+        t0 = time.perf_counter()
+        cd = join_split_circuit_data(device=device)
+        secs["padding_proof"] = time.perf_counter() - t0
+        # the worker's 2^24 keys need the card: this process's cached
+        # blocks (the padding proof's, the earlier phases') go back first
+        gc.collect()
+        torch.cuda.empty_cache()
+        ws = WorldState(data_depth=6, null_depth=16, root_depth=4)
+        rtx = create_rollup_tx(ws, rollup_id=0,
+                               tx_proofs=[cd.padding_proof] * TOWER_TXS,
+                               rollup_size=TOWER_TXS)
+        body = write_rollup_tx(rtx)
+        worker = WorkerProcess(env, err_path, timeout=TOWER_TIMEOUT)
+        try:
+            t0 = time.perf_counter()
+            if worker.proc.stdout.read(1) != b"\x01":
+                raise AssertionError("the worker sent no ready byte")
+            secs["ready"] = time.perf_counter() - t0
+            inner, ok, secs["0x0"] = worker.request(
+                struct.pack(">II", 0, TOWER_TXS)
+                + struct.pack(">I", len(body)) + body)
+            if ok != 1 or not inner:
+                raise AssertionError("id 0: the tx rollup failed")
+            vk_json, ok, secs["0x202"] = worker.request(
+                struct.pack(">I", 0x202))
+            if ok != 1:
+                raise AssertionError("0x202 after id 0 failed")
+            inner_vk = fixtures.vk_from_json(vk_json.decode())
+            if (inner_vk.settings.name != "unrolled_turbo"
+                    or not inner_vk.contains_recursive_proof):
+                raise AssertionError(f"0x202: settings "
+                                     f"{inner_vk.settings.name}, recursive "
+                                     f"{inner_vk.contains_recursive_proof}")
+            if not Verifier(inner_vk, UnrolledTurboFlavor).verify_proof(inner):
+                raise AssertionError("the inner rollup proof does not verify "
+                                     "against the VK 0x202 answered")
+            root_tx = create_root_rollup_tx(ws, rollup_id=0,
+                                            rollup_proofs=[inner],
+                                            new_data_root=rtx.new_data_root)
+            rbody = write_root_rollup_tx(root_tx)
+            root, ok, secs["0x1"] = worker.request(
+                struct.pack(">III", 1, TOWER_TXS, 1)
+                + struct.pack(">I", len(vk_json)) + vk_json
+                + struct.pack(">I", len(rbody)) + rbody)
+            if ok != 1 or not root:
+                raise AssertionError("id 1: the root rollup failed")
+            worker.proc.stdin.close()
+            rc = worker.proc.wait(timeout=60)
+            if rc != 0:
+                raise AssertionError(f"the worker exited {rc}")
+        except BaseException:
+            worker.close()
+            with open(err_path, errors="replace") as f:
+                tail = [line.rstrip() for line in f
+                        if not line.startswith("import time:")][-40:]
+            for line in tail:
+                log(f"  tower worker: {line}")
+            raise
+        finally:
+            worker.close()
+        with open(os.path.join(fixtures.fixture_dir(),
+                               "root_rollup_vk.json")) as f:
+            root_vk = fixtures.vk_from_json(f.read())
+    finally:
+        if saved is None:
+            os.environ.pop("AZTEC_FIXTURES", None)
+        else:
+            os.environ["AZTEC_FIXTURES"] = saved
+    if not root_vk.contains_recursive_proof:
+        raise AssertionError("the root rollup's VK carries no recursive "
+                             "proof")
+    verifier = Verifier(root_vk, TurboFlavor)
+    t0 = time.perf_counter()
+    if not verifier.verify_proof(root):
+        raise AssertionError("the root rollup proof does not verify here")
+    secs["root_verify_here"] = time.perf_counter() - t0
+    bad = bytearray(root)
+    bad[len(bad) // 2] ^= 1
+    if verifier.verify_proof(bytes(bad)):
+        raise AssertionError("a tampered root rollup proof verified")
+    imported = worker_imports(err_path)
+    leaked = [m for m in imported if m.split(".")[0] in ("jax", "aztec_tpu")]
+    if "aztec_tpu_torch.rollup.root_rollup_circuit" not in imported or leaked:
+        raise AssertionError(f"tower worker imports: {len(imported)} read, "
+                             f"JAX or the JAX package: {leaked[:5]}")
+    stats = rollup_stats(err_path)
+    if [r["circuit"] for r in stats] != ["tx_rollup", "root_rollup"]:
+        raise AssertionError(f"tower worker logged {len(stats)} rollups")
+    with open(err_path, errors="replace") as f:
+        for line in f:
+            if not line.startswith(("import time:", "rollup_stats ")):
+                log(f"  tower worker: {line.rstrip()}")
+    launches = dict(fk.LAUNCHES)
+    for r in stats:
+        log(f"tower {r['circuit']}: {r['gates']} gates, "
+            f"{r['public_inputs']} public inputs, subgroup {r['subgroup']}; "
+            + " ".join(f"{k}={r[k]:.2f}" for k in
+                       ("build_s", "srs_s", "key_s", "vk_s", "witness_s",
+                        "proof_s", "verify_s"))
+            + f"; worker peak device memory {r['peak_bytes']} bytes "
+            f"({r['peak_bytes'] / 2**30:.2f} GiB)")
+        log(f"tower {r['circuit']}: proof launches "
+            f"{sum(r['proof_launches'].values())}: "
+            + json.dumps(r["proof_launches"], sort_keys=True))
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"tower: the worker's inner (unrolled Turbo) and root (Turbo, "
+        f"Keccak) rollup proofs verify, the root here again with its "
+        f"recursive accumulator folded, a tampered root rejected; inner "
+        f"sha256 {hashlib.sha256(inner).hexdigest()} ({len(inner)} bytes), "
+        f"root sha256 {hashlib.sha256(root).hexdigest()} ({len(root)} "
+        f"bytes); {len(imported)} modules imported by the worker, none of "
+        f"JAX or the JAX package; request seconds "
+        + json.dumps({k: round(v, 3) for k, v in secs.items()}))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def http_path(env: dict, verifier) -> None:
     """The port's HTTP server in this process, over its own worker child:
     GET /status, then POST /create-proof of a WORKER_GATES-gate Turbo demo
@@ -2466,6 +2829,9 @@ def run(argv=()) -> int:
     package, it compares that commit's kernels on the same card."""
     redesigned_only = "--redesigned" in argv
     turbo_profile_only = "--turbo-profile" in argv
+    quarters_only = "--quarters" in argv
+    tower_only = "--tower" in argv
+    warm_only = "--warm-proofs" in argv
     try:
         import torch
     except ImportError:
@@ -2495,6 +2861,20 @@ def run(argv=()) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t_build = native.build()
     log(f"build: {t_build:.1f}s for {', '.join(native.SOURCES)}")
+
+    if warm_only:
+        log(json.dumps({"warm_proofs": warm_proofs()}))
+        log(card)
+        return 0
+    if quarters_only or tower_only:
+        if quarters_only:
+            quarter_plans()
+        if tower_only:
+            fk.LAUNCHES.clear()
+            log("path rollup_tower launches: "
+                + json.dumps(tower_path(), sort_keys=True))
+        log(card)
+        return 0
 
     rate = timing.peak_per_s(INT32_PER_CLOCK_PER_SM)
     log(f"int32 multiply-add peak (programming guide): {rate:.4g} per s")
@@ -2564,6 +2944,14 @@ def run(argv=()) -> int:
                                join_split_path)
     path("proof_account", turbo_kernels, account_path)
     worker_path()
+    # the tower's proofs run in the worker: it counts their launches
+    fk.LAUNCHES.clear()
+    paths["rollup_tower"] = tower_path()
+    log("path rollup_tower launches: "
+        + json.dumps(paths["rollup_tower"], sort_keys=True))
+    missing = [k for k in turbo_kernels if not paths["rollup_tower"].get(k)]
+    if missing:
+        raise AssertionError(f"path rollup_tower never launched {missing}")
     path("msm_engine_2pow20", ["rake_scan_packed", "bucket_phase"],
          check_engine, case)
     del case

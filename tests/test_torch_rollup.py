@@ -355,7 +355,8 @@ def test_vectors_name_their_producer():
                    if f.endswith(".json"))
     producers = {name: plonk_cases.load_vector(name)[0].get(
         "producer", mv.REFERENCE) for name in names}
-    assert producers.pop("join_split_d3") == mv.CARD
+    for name in mv.CARD_ONLY:
+        assert producers.pop(name) == mv.CARD, name
     assert set(producers.values()) == {mv.REFERENCE}
     with pytest.raises(SystemExit, match="turbo_drive"):
         mv.card_vectors(["join_split_d3", "turbo_drive"])

@@ -5,10 +5,11 @@ CPU.
 ``serve(stdin, stdout, device="cpu")`` runs in process over byte buffers:
 the ready byte, the Standard and Turbo demo proofs (ids 0x100 and 0x101 at
 4 gates), each verified by the port's verifier and by aztec_tpu's; a
-tx-rollup frame (id 0, whose circuit is not ported yet) answered with the
-empty failed frame while the next request is still served; 0x202 before any
-tx-rollup proof answered failed; an unknown id answered failed, after which
-``serve`` returns.  The VK queries 0x200 and 0x201 prove the join-split
+tx-rollup frame (id 0) and a root-rollup frame (id 1) whose bodies do not
+parse, each answered with the empty failed frame while the next request is
+still served; 0x202 before any tx-rollup proof answered failed; an unknown
+id answered failed, after which ``serve`` returns.  The rollup circuits
+themselves (2^24 gates) are proved on the card: chip_smoke.py phase 5d.  The VK queries 0x200 and 0x201 prove the join-split
 and account circuits at 2^16-2^17 gates: the ``cuda``-marked case and
 chip_smoke.py run them on the card.
 """
@@ -65,6 +66,8 @@ def served():
 
     stdin = (struct.pack(">II", 0x100, 4)
              + struct.pack(">III", 0, 2, 3) + b"abc"     # num_txs, the tx
+             + struct.pack(">IIII", 1, 1, 1, 2) + b"{}"  # ids, the VK
+             + struct.pack(">I", 3) + b"xyz"             # the root tx
              + struct.pack(">II", 0x101, 4)
              + struct.pack(">I", 0x202)
              + struct.pack(">I", 0x999)
@@ -79,15 +82,16 @@ def served():
 def test_worker_frames(served):
     frames, log, _ = served
     # ok is the port's verifier's verdict on the worker's own proof
-    assert [ok for _, ok in frames] == [1, 0, 1, 0, 0]
-    assert [len(p) > 0 for p, _ in frames] == [True, False, True, False,
-                                               False]
-    assert "proof_id 0 needs the rollup circuits, not ported yet" in log
+    assert [ok for _, ok in frames] == [1, 0, 0, 1, 0, 0]
+    assert [len(p) > 0 for p, _ in frames] == [True, False, False, True,
+                                               False, False]
+    assert "proof_id 0 error: error(" in log           # struct.error
+    assert "proof_id 1 error: KeyError" in log
     assert "unknown proof_id 2457" in log
 
 
 @pytest.mark.parametrize("kind,at,flavor", [("standard", 0, "standard_drive1"),
-                                            ("turbo", 2, "turbo_drive")])
+                                            ("turbo", 3, "turbo_drive")])
 def test_worker_demo_proofs_verify(served, kind, at, flavor):
     frames, _, built = served
     proof = frames[at][0]

@@ -1,6 +1,7 @@
 """The port's TurboPlonk slice against the JAX package, on the CPU.
 
-- ``turbo_quotient`` at n = 16 on seeded inputs equals the reference's
+- the Turbo quotient (``TurboFlavor.quotient_evals`` over stored coset
+  forms) at n = 16 on seeded inputs equals the reference's ``turbo_quotient``
   output committed in tests/torch_vectors/turbo_quotient.npz (on the card
   too: the ``cuda``-marked case, skipped here);
 - the Turbo and unrolled flavors' host terms equal aztec_tpu's on seeded
@@ -46,12 +47,26 @@ def _one_thread():
 
 
 def _quotient_matches_reference(device):
-    from aztec_tpu_torch.plonk import kernels
+    """``TurboFlavor.quotient_evals`` over a key with stored 4n coset forms
+    (the prover's path below ``QUARTER_MIN_N``)."""
+    from types import SimpleNamespace
 
-    ins = quotient_inputs()
-    got = kernels.turbo_quotient(
-        *(torch.from_numpy(ins[k].astype(np.int32)).to(device)
-          for k in QUOTIENT_ARGS), QUOTIENT_N)
+    from aztec_tpu_torch.plonk.flavors import TurboFlavor
+
+    ins = {k: torch.from_numpy(ins.astype(np.int32)).to(device)
+           for k, ins in quotient_inputs().items() if k in QUOTIENT_ARGS}
+    stored = [SimpleNamespace(fft=x) for x in ins["qffts"].unbind(1)]
+    pk = SimpleNamespace(
+        quarters=False, l1_fft=ins["l1fft"], coset_pts=ins["coset_pts"],
+        vanish_scale=ins["vanish_scale"],
+        sigmas={f"sigma_{i}": SimpleNamespace(fft=x)
+                for i, x in enumerate(ins["sffts"].unbind(1), 1)},
+        selectors=dict(zip(TurboFlavor.SELECTOR_ORDER, stored)))
+    wire_fft = {f"w_{i}": x for i, x in enumerate(ins["wffts"].unbind(1), 1)}
+    wire_fft["z"] = ins["zfft"]
+    got = TurboFlavor.quotient_evals(
+        pk, None, wire_fft, {k: ins[k] for k in ("alphas", "beta", "gamma",
+                                                 "delta")}, QUOTIENT_N)
     with np.load(os.path.join(HERE, "turbo_quotient.npz")) as d:
         want = d["out"].astype(np.int32)
     assert got.shape == (16, 4 * QUOTIENT_N)

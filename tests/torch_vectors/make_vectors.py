@@ -52,11 +52,21 @@ with, optionally followed by the names to make (``mont_pow`` and
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_vectors/make_vectors.py
 
+Also ``recursive_vk.json``: aztec_tpu's native Pedersen compression of a
+seeded unrolled-Turbo VK and the gate digest of the circuit that
+compresses it in-circuit and checks its membership of a key set
+(``recursive_vk_circuit``); tests/test_torch_recursion.py holds the port
+to both (aztec_tpu's generators for the 123 inputs take minutes).
+
 With ``--card`` the named circuits, all of ``CARD_ONLY``, are proved by
 the port (aztec_tpu_torch) on the card instead, in the same record format
-with the card as producer; no JAX is imported:
+with the card as producer; no JAX is imported.  ``rollup_tower`` is the
+whole tower of tools/rollup_tower.py (``tower_vector``), two circuits of
+2^24 gates, which only the card proves; tests/test_torch_rollup_circuits.py
+holds it to aztec_tpu's verifiers:
 
     python tests/torch_vectors/make_vectors.py --card join_split_d3
+    python tests/torch_vectors/make_vectors.py --card rollup_tower
 """
 
 from __future__ import annotations
@@ -202,8 +212,138 @@ UNROLLED = ("unrolled_turbo_drive", "join_split_d3")
 PLANES = ("standard_drive1", "standard_chain8", "turbo_drive")
 # the circuits whose committed record may be the port's own proof on the
 # card (``--card``); every other record is aztec_tpu's
-CARD_ONLY = ("join_split_d3",)
+CARD_ONLY = ("join_split_d3", "rollup_tower")
 REFERENCE, CARD = "aztec_tpu", "aztec_tpu_torch/card"
+TOWER_SEEDS = (12, 13)  # counter rngs of the inner and the root rollup proof
+
+
+def gate_digest(c) -> str:
+    """sha256 of a Turbo composer's recorded circuit: gates, witnesses,
+    copy classes and public inputs."""
+    import hashlib
+
+    lists = [c.n, c.variables, list(c.real_variable_index),
+             c.next_var_index, c.public_inputs]
+    lists += [getattr(c, w) for w in ("w_l", "w_r", "w_o", "w_4")]
+    lists += [getattr(c, s) for s in ("q_m", "q_c", "q_1", "q_2", "q_3",
+                                      "q_4", "q_5", "q_arith", "q_ecc_1",
+                                      "q_range", "q_logic")]
+    return hashlib.sha256(json.dumps(lists).encode()).hexdigest()
+
+
+def recursive_vk_case(pkg: str):
+    """Two unrolled-Turbo VKs of package ``pkg`` with seeded on-curve
+    commitments (tests/test_recursion_verifier.py's ``_fake_vk``, seeds 5
+    and 900): the key and another of the set."""
+    pairing = importlib.import_module(f"{pkg}.curves.pairing")
+    manifests = importlib.import_module(f"{pkg}.plonk.manifests")
+    proving_key = importlib.import_module(f"{pkg}.plonk.proving_key")
+    labels = [item.commitment_label
+              for item in manifests.UNROLLED_TURBO.polynomial_manifest
+              if item.source != "witness"]
+
+    def vk(seed):
+        return proving_key.VerificationKey(
+            n=16, num_public_inputs=2,
+            commitments={lab: pairing.g1_mul(seed + i * 7 + 1, (1, 2))
+                         for i, lab in enumerate(labels)},
+            domain_root=pow(5, (FR_MOD - 1) // 16, FR_MOD),
+            g2_x=((1, 2), (3, 4)), settings=manifests.UNROLLED_TURBO)
+    return vk(5), vk(900)
+
+
+def recursive_vk_circuit(pkg: str, c) -> int:
+    """On composer ``c``: the key of ``recursive_vk_case`` as witnesses,
+    its in-circuit compression, and its membership of the set (the other
+    key first).  Returns the compression's value."""
+    rv = importlib.import_module(f"{pkg}.stdlib.recursion_verifier")
+    vk, other = recursive_vk_case(pkg)
+    rvk = rv.RecursiveVK.from_witness(c, vk)
+    value = rvk.compress(c).get_value()
+    rvk.validate_key_is_in_set(c, [other, vk])
+    return value
+
+
+def recursive_vk_vector() -> None:
+    """``recursive_vk.json``: aztec_tpu's native compression of the key
+    and the gate digest of ``recursive_vk_circuit``."""
+    from aztec_tpu.plonk.circuit_check import check_turbo
+    from aztec_tpu.plonk.composer import TurboComposer
+    from aztec_tpu.stdlib.recursion_verifier import RecursiveVK
+
+    c = TurboComposer()
+    value = recursive_vk_circuit("aztec_tpu", c)
+    native = RecursiveVK.compress_native(recursive_vk_case("aztec_tpu")[0])
+    if value != native or c.failed or check_turbo(c):
+        raise AssertionError("recursive_vk: aztec_tpu's circuit is wrong")
+    with open(os.path.join(HERE, "recursive_vk.json"), "w") as f:
+        json.dump({"producer": REFERENCE, "compressed": hex(native),
+                   "gate_digest": gate_digest(c), "gates": c.n}, f, indent=1)
+    print(f"recursive_vk: written, {c.n} gates", flush=True)
+
+
+def tower_vector() -> None:
+    """``rollup_tower.json``: the rollup tower proved by the port on the
+    card, as tools/rollup_tower.py builds it (one tx, WorldState(6, 16,
+    4), the depth-6 join-split padding proof made in a fresh fixture
+    directory): the inner rollup proof (unrolled Turbo) with its VK and
+    the root rollup proof (Turbo, Keccak) with its VK, each proof under a
+    counter rng of ``TOWER_SEEDS`` and verified by the port."""
+    import dataclasses
+    import tempfile
+
+    os.environ["AZTEC_FIXTURES"] = tempfile.mkdtemp(prefix="tower_vector_")
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    from aztec_tpu_torch.plonk import manifests
+    from aztec_tpu_torch.plonk.composer import TurboComposer
+    from aztec_tpu_torch.rollup.circuit_data import join_split_circuit_data
+    from aztec_tpu_torch.rollup.create_rollup import (create_rollup_tx,
+                                                      create_root_rollup_tx)
+    from aztec_tpu_torch.rollup.rollup_circuit import rollup_circuit
+    from aztec_tpu_torch.rollup.root_rollup_circuit import root_rollup_circuit
+    from aztec_tpu_torch.rollup.world_state import WorldState
+    from aztec_tpu_torch.srs.reference_string import FakeReferenceStringFactory
+    from aztec_tpu_torch.utils.fixtures import vk_to_json
+
+    crs = FakeReferenceStringFactory(device="cuda")
+    cd = join_split_circuit_data(device="cuda")
+    ws = WorldState(data_depth=6, null_depth=16, root_depth=4)
+    rtx = create_rollup_tx(ws, 0, [cd.padding_proof], rollup_size=1)
+    out = {"producer": CARD}
+    for stage, seed in zip(("inner", "root"), TOWER_SEEDS):
+        c = TurboComposer(crs_factory=crs, device="cuda")
+        if stage == "inner":
+            rollup_circuit(c, rtx, [cd.vk], rollup_size=1)
+            prover = c.create_unrolled_prover()
+        else:
+            root_tx = create_root_rollup_tx(ws, 0, [inner], rtx.new_data_root)
+            root_rollup_circuit(c, root_tx, inner_rollup_size=1,
+                                outer_rollup_size=1,
+                                inner_verification_key=inner_vk)
+            prover = c.create_prover()
+        if c.failed:
+            raise AssertionError(f"rollup_tower {stage}: {c.err}")
+        prover.rng = counter_rng(seed)
+        proof = prover.construct_proof()
+        del prover
+        vk = c.compute_verification_key()
+        verifier = (c.create_unrolled_verifier() if stage == "inner"
+                    else c.create_verifier())
+        if not verifier.verify_proof(proof):
+            raise AssertionError(f"rollup_tower {stage}: the port rejects "
+                                 "its proof")
+        if stage == "inner":
+            inner = proof
+            inner_vk = vk = dataclasses.replace(
+                vk, settings=manifests.UNROLLED_TURBO)
+        out[stage] = {"gates": c.n, "n": vk.n, "rng_seed": seed,
+                      "proof": proof.hex(), "vk": vk_to_json(vk)}
+        print(f"rollup_tower {stage}: {c.n} gates, n={vk.n}, proof="
+              f"{len(proof)} bytes, verified", flush=True)
+        del c, verifier
+    with open(os.path.join(HERE, "rollup_tower.json"), "w") as f:
+        json.dump(out, f, indent=1)
 
 
 def make_prover(c, name: str):
@@ -333,6 +473,9 @@ def card_vectors(names) -> None:
                          "the other records are aztec_tpu's proofs")
     mod = plonk_cases.port_classes("cuda")
     for name in names:
+        if name == "rollup_tower":
+            tower_vector()
+            continue
         build, seed = CIRCUITS[name]
         c = build(mod)
         prover = make_prover(c, name)
@@ -370,6 +513,8 @@ def main() -> None:
         pow_vectors()
     if not only or "turbo_quotient" in only:
         quotient_vectors()
+    if not only or "recursive_vk" in only:
+        recursive_vk_vector()
     for name, (build, seed) in CIRCUITS.items():
         if only and name not in only:
             continue

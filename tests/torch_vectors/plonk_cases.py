@@ -94,6 +94,43 @@ def reference_verifier(vk, name: str = "standard_drive1"):
     return Verifier(key, flavor)
 
 
+def linear_generator_stream(pedersen):
+    """``get_generator`` of the reference's ``crypto.pedersen`` module, the
+    same points from its own ``hash_to_curve`` and ``g_on_curve``, the
+    stream extended once: the module's own searches from seed 1 for every
+    index (about 20 s for the ~90 generators of an unrolled proof's
+    transcript with 42 public inputs)."""
+    gens, seed = [], [0]
+
+    def get_generator(index: int):
+        while len(gens) <= index:
+            seed[0] += 1
+            cand = pedersen.hash_to_curve(seed[0])
+            if cand is not None and pedersen.g_on_curve(cand):
+                gens.append(cand)
+        return gens[index]
+    return get_generator
+
+
+TURBO_SELECTORS = ("q_m", "q_c", "q_1", "q_2", "q_3", "q_4", "q_5",
+                   "q_arith", "q_ecc_1", "q_range", "q_logic")
+
+
+def assert_same_circuit(mine, theirs):
+    """Two TurboComposers recorded the same circuit: gates, witnesses, copy
+    classes, public inputs and the recursive-proof positions."""
+    assert mine.n == theirs.n
+    assert mine.failed == theirs.failed
+    assert mine.variables == theirs.variables
+    assert mine.real_variable_index == theirs.real_variable_index
+    assert mine.next_var_index == theirs.next_var_index
+    assert mine.public_inputs == theirs.public_inputs
+    assert (mine.recursive_proof_public_input_indices
+            == theirs.recursive_proof_public_input_indices)
+    for name in ("w_l", "w_r", "w_o", "w_4") + TURBO_SELECTORS:
+        assert getattr(mine, name) == getattr(theirs, name), name
+
+
 def tampered(proof: bytes) -> bytes:
     bad = bytearray(proof)
     bad[len(bad) // 3] ^= 0x01
