@@ -41,18 +41,23 @@ def proving_key_from_numpy(n: int, num_public_inputs: int, planes: dict, srs,
                            device="cuda") -> ProvingKey:
     """A proving key from the reference key's planes, for the selectors and
     sigmas of the settings' polynomial manifest (five and three for
-    Standard, eleven and four for Turbo).
+    Standard, eleven and four for Turbo; Ultra adds ``table_1..4``,
+    ``q_lookup`` and ``q_index`` to the selectors).
 
     ``planes`` maps ``"<name>_monomial"`` for every selector and sigma, and
-    ``"<sigma>_lagrange"`` for the sigmas (the reference keeps only the
-    sigmas' lagrange form), to (16, n) Montgomery planes.  The 4n coset
-    evaluations are recomputed on ``device`` from the monomials."""
+    ``"<name>_lagrange"`` for the sigmas and for the selectors the
+    reference keeps in lagrange form too (Ultra's tables, ``q_lookup`` and
+    ``q_index``), to (16, n) Montgomery planes.  The 4n coset evaluations
+    are recomputed on ``device`` from the monomials."""
     pk = ProvingKey(n, num_public_inputs, srs, settings, device)
     manifest = settings.polynomial_manifest
     for name in (p.polynomial_label for p in manifest
                  if p.source == "selector"):
+        lag = planes.get(f"{name}_lagrange")
         pk.add_monomial("selector", name,
-                        planes_from_numpy(planes[f"{name}_monomial"], device))
+                        planes_from_numpy(planes[f"{name}_monomial"], device),
+                        None if lag is None else planes_from_numpy(lag,
+                                                                   device))
     for name in (p.polynomial_label for p in manifest
                  if p.source == "permutation"):
         pk.add_monomial("permutation", name,

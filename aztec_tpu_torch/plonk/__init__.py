@@ -1,4 +1,6 @@
-"""Standard PLONK and TurboPlonk proof systems (ref: plonk/proof_system/)."""
+"""Standard, Turbo, Ultra and MiMC PLONK proof systems (ref:
+plonk/proof_system/)."""
 
-from .composer import (AddTriple, MulTriple, PolyTriple,  # noqa: F401
-                       StandardComposer, TurboComposer)
+from .composer import (AddTriple, MiMCComposer, MulTriple,  # noqa: F401
+                       PolyTriple, StandardComposer, TurboComposer,
+                       UltraComposer)

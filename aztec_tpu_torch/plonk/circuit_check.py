@@ -2,10 +2,10 @@
 
 Evaluates every gate identity row-by-row with exact integer arithmetic,
 grouped by independent alpha power as the quotient kernels combine them
-(kernels._std_terms / kernels._turbo_terms): each group must vanish on
+(kernels._std_terms, _turbo_terms, _mimc_terms): each group must vanish on
 every gate row for the circuit to be satisfiable.  Port of
-aztec_tpu/plonk/circuit_check.py's ``check_standard`` and ``check_turbo``
-(its ``check_mimc`` waits for the MiMC composer).
+aztec_tpu/plonk/circuit_check.py: ``check_standard``, ``check_turbo`` and
+``check_mimc``.
 """
 
 from __future__ import annotations
@@ -117,3 +117,22 @@ def check_turbo(composer) -> list:
             t2 = (3 * qcq + 3 * ds - 2 * w_term + t3) % M
             chk("logic_c", qlogic * t2)
     return bad
+
+
+def check_mimc(composer) -> list:
+    """Returns [(row, description)] of violated mimc-composer identities
+    (standard arithmetic + the x^7 gate, mimc_widget.hpp)."""
+    composer._flush_mimc()
+    bad = check_standard(composer)
+    _, _, n, wire = _rows(composer)
+    for i in range(n):
+        if composer.q_mimc_selector[i] == 0:
+            continue
+        k, x_cubed, x_in = wire(0, i), wire(1, i), wire(2, i)
+        x_out = wire(2, i + 1)
+        t0 = (x_in + k + composer.q_mimc_coefficient[i]) % M
+        if (t0 * t0 % M * t0 - x_cubed) % M != 0:
+            bad.append((i, "mimc_cube"))
+        if (x_cubed * x_cubed % M * t0 - x_out) % M != 0:
+            bad.append((i, "mimc_seven"))
+    return sorted(bad)

@@ -1,11 +1,10 @@
 """Circuit composer: gate recording, copy cycles, sigma permutations.
 
-Port of the ``StandardComposer`` and ``TurboComposer`` of
-aztec_tpu/plonk/composer.py.  Gate recording and copy-cycle bookkeeping are
-host Python, carried over as they are (so identical circuits give identical
-sigma polynomials); selector transforms, sigma synthesis and key
-commitments run on the composer's device.  The Ultra and MiMC composers are
-not ported.
+Port of the ``StandardComposer``, ``TurboComposer``, ``UltraComposer`` and
+``MiMCComposer`` of aztec_tpu/plonk/composer.py.  Gate recording and
+copy-cycle bookkeeping are host Python, carried over as they are (so
+identical circuits give identical sigma polynomials); selector transforms,
+sigma synthesis and key commitments run on the composer's device.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ from ..ff.bn254 import FR_MOD
 from ..numeric.bigint import ints_to_limbs
 from ..srs.reference_string import FakeReferenceStringFactory
 from . import kernels
-from .manifests import STANDARD, TURBO, StandardSettings
+from .manifests import MIMC, STANDARD, TURBO, ULTRA, StandardSettings
 from .proving_key import ProvingKey, VerificationKey, commit_many, ints_to_mont
 
 NUM_RESERVED_GATES = 4  # >= num_roots_cut_out_of_vanishing_polynomial
@@ -699,3 +698,283 @@ class TurboComposer(ComposerBase):
 
     def compute_witness(self):
         return self.witness_planes(self.subgroup_size(), 4)
+
+
+class UltraComposer(TurboComposer):
+    """UltraPlonk composer: the turbo gate set + plookup lookup gates
+    (ref design: barretenberg/lookup_tables.md, polynomial_manifest.hpp:
+    23-46 reserved slots).
+
+    A lookup gate places (key1, key2, value) on w_1..w_3 with q_lookup = 1
+    and q_index = the table index; the proving key carries the table columns
+    as table_1..4 plus q_lookup/q_index, and the prover adds the sorted-list
+    halves S_1/S_2 and the Z_LOOKUP grand product (flavors.UltraFlavor).
+    """
+
+    SELECTORS = TurboComposer.SELECTORS + ("q_lookup", "q_index")
+
+    def __init__(self, crs_factory=None, settings=ULTRA, device="cuda"):
+        super().__init__(crs_factory, settings, device)
+        self.tables: Dict[int, object] = {}
+        # table index -> {(k1, k2): first matching row}, built on first read
+        self._rows_by_keys: Dict[int, Dict[tuple, tuple]] = {}
+        self._lookups: List[tuple] = []
+
+    def _flavor(self):
+        from .flavors import UltraFlavor
+
+        return UltraFlavor
+
+    def _unrolled_flavor(self):
+        from .flavors import UnrolledUltraFlavor
+
+        return UnrolledUltraFlavor
+
+    def _push(self, a, b, c, d, q_lookup=0, q_index=0, **selectors):
+        super()._push(a, b, c, d, **selectors)
+        self.q_lookup.append(q_lookup % FR_MOD)
+        self.q_index.append(q_index % FR_MOD)
+
+    # -- tables / lookup gates -------------------------------------------------
+    def add_lookup_table(self, table) -> None:
+        if table.index in self.tables:
+            assert self.tables[table.index] is table
+            return
+        self.tables[table.index] = table
+
+    def create_lookup_gate(self, a: int, b: int, c: int, table_index: int):
+        """Constrain (w(a), w(b), w(c)) to be a row of the table."""
+        assert table_index in self.tables, "register the table first"
+        self._push(a, b, c, self.zero_idx, q_lookup=1, q_index=table_index)
+        self._lookups.append(
+            (self.get_variable(a), self.get_variable(b), self.get_variable(c),
+             table_index)
+        )
+
+    def read_from_table(self, table_index: int, a: int, b: int = None) -> int:
+        """Witness the table value for keys (w(a), w(b)) and add the lookup
+        gate; returns the value's witness index.  The row is the table's
+        first with these keys, as the reference's linear scan finds it,
+        from an index of the table built on its first read."""
+        table = self.tables[table_index]
+        rows = self._rows_by_keys.get(table_index)
+        if rows is None:
+            rows = {}
+            for r in table.rows:
+                rows.setdefault((r[0], r[1]), r)
+            self._rows_by_keys[table_index] = rows
+        k1 = self.get_variable(a)
+        k2 = self.get_variable(b) if b is not None else 0
+        row = rows.get((k1, k2))
+        if row is None:
+            if not self.failed:
+                self.failed = True
+                self.err = f"lookup ({k1},{k2}) not in table {table_index}"
+            row = table.rows[0]
+        c = self.add_variable(row[2])
+        if b is None:
+            b = self.zero_idx
+        self.create_lookup_gate(a, b, c, table_index)
+        return c
+
+    def create_range_constraint_via_lookup(self, witness_index: int,
+                                           table_index: int,
+                                           num_chunks: int,
+                                           chunk_bits: int):
+        """Range-constrain to num_chunks * chunk_bits bits with one lookup
+        row per chunk + a recomposition gate chain (vs one turbo gate per
+        8 bits)."""
+        value = self.get_variable(witness_index)
+        base = 1 << chunk_bits
+        chunks = [(value >> (chunk_bits * i)) & (base - 1)
+                  for i in range(num_chunks)]
+        acc_idx = None
+        acc_val = 0
+        for i in reversed(range(num_chunks)):
+            ci = self.add_variable(chunks[i])
+            self.create_lookup_gate(ci, self.zero_idx, self.zero_idx,
+                                    table_index)
+            if acc_idx is None:
+                acc_idx, acc_val = ci, chunks[i]
+            else:
+                new_val = (acc_val * base + chunks[i]) % FR_MOD
+                new_idx = self.add_variable(new_val)
+                self.create_add_gate(AddTriple(
+                    acc_idx, ci, new_idx, base, 1, -1, 0))
+                acc_idx, acc_val = new_idx, new_val
+        self.assert_equal(acc_idx, witness_index, "range lookup mismatch")
+        return acc_idx
+
+    # -- keys ------------------------------------------------------------------
+    def _table_size(self) -> int:
+        return sum(len(t.rows) for t in self.tables.values())
+
+    def subgroup_size(self) -> int:
+        total = self.n + len(self.public_inputs)
+        # the sorted list needs #lookups + table rows + zeros to fit 2m+1
+        need = max(total + NUM_RESERVED_GATES,
+                   self._table_size() + NUM_RESERVED_GATES)
+        return _next_pow2(need)
+
+    def compute_proving_key(self) -> ProvingKey:
+        if self._pk is not None:
+            return self._pk
+        from ..poly import fft_ops as pfft
+
+        pk = super().compute_proving_key()
+        size = pk.n
+        assert self._table_size() <= size - NUM_RESERVED_GATES, \
+            "table content exceeds circuit capacity"
+
+        # table column polynomials (content rows first, zero padding after:
+        # the order build_sorted_halves assumes)
+        cols = [[], [], [], []]
+        for idx in sorted(self.tables):
+            for k1, k2, v in self.tables[idx].rows:
+                cols[0].append(k1)
+                cols[1].append(k2)
+                cols[2].append(v)
+                cols[3].append(idx)
+        pad = size - len(cols[0])
+        for i in range(4):
+            pk.add_polynomial("selector", f"table_{i+1}",
+                              ints_to_mont(cols[i] + [0] * pad, self.device),
+                              keep_lagrange=True)
+        # the z_lookup kernel needs these in lagrange form too
+        for name in ("q_lookup", "q_index"):
+            store = pk.selectors[name]
+            if store.lagrange is None:
+                store.lagrange = pfft.fft(store.monomial, pk.small_domain)
+        return pk
+
+    def _prover(self, flavor):
+        from .prover import Prover
+
+        pk = self.compute_proving_key()
+        wires, pubvals = self.compute_witness()
+        aux = {"tables": list(self.tables.values()), "lookups": self._lookups}
+        return Prover(pk, wires, pubvals, flavor, aux=aux)
+
+    def create_prover(self):
+        return self._prover(self._flavor())
+
+    def create_unrolled_prover(self):
+        """Recursion-friendly prover: identical polynomial work, Pedersen+
+        Blake2s transcript (flavors.UnrolledUltraFlavor)."""
+        return self._prover(self._unrolled_flavor())
+
+
+class MiMCComposer(StandardComposer):
+    """Standard composer + the MiMC x^7 block-cipher gate
+    (ref: plonk/composer/mimc_composer.cpp).
+
+    A mimc gate at row i encodes one cipher round
+    x_out = (x_in + k + c_i)^7 as: w_1 = k, w_2 = x_cubed, w_3 = x_in,
+    q_mimc_coefficient = c_i, with x_out read from w_3 of row i+1 (the
+    widget's w_3_omega shift), so consecutive mimc gates chain for free,
+    and a pending x_out is flushed into a noop row whenever a non-mimc
+    gate follows (mimc_composer.cpp:23-116)."""
+
+    def __init__(self, crs_factory=None, settings=None, device="cuda"):
+        # set first: the base __init__ seeds constant-0 via the overridden
+        # _push path
+        self.q_mimc_coefficient: List[int] = []
+        self.q_mimc_selector: List[int] = []
+        self.current_output_wire: Optional[int] = None
+        super().__init__(crs_factory, settings or MIMC, device)
+
+    def _push(self, a, b, c, qm, q1, q2, q3, qc):
+        # any standard gate first flushes a pending mimc output row
+        self._flush_mimc()
+        super()._push(a, b, c, qm, q1, q2, q3, qc)
+        self.q_mimc_coefficient.append(0)
+        self.q_mimc_selector.append(0)
+
+    def _flush_mimc(self):
+        if self.current_output_wire is None:
+            return
+        out = self.current_output_wire
+        self.current_output_wire = None
+        # noop row carrying x_out in w_3 (mimc_composer.cpp:94-116)
+        super()._push(self.zero_idx, self.zero_idx, out, 0, 0, 0, 0, 0)
+        self.q_mimc_coefficient.append(0)
+        self.q_mimc_selector.append(0)
+
+    def create_mimc_gate(self, x_in_idx: int, x_cubed_idx: int, k_idx: int,
+                         x_out_idx: int, mimc_constant: int):
+        if (self.current_output_wire is not None
+                and x_in_idx != self.current_output_wire):
+            self._flush_mimc()
+        self.current_output_wire = None
+        self.w_l.append(k_idx)
+        self.w_r.append(x_cubed_idx)
+        self.w_o.append(x_in_idx)
+        self.q_m.append(0)
+        self.q_1.append(0)
+        self.q_2.append(0)
+        self.q_3.append(0)
+        self.q_c.append(0)
+        self.q_mimc_coefficient.append(mimc_constant % FR_MOD)
+        self.q_mimc_selector.append(1)
+        self.n += 1
+        self.current_output_wire = x_out_idx
+
+    def create_dummy_gates(self):
+        """Non-zero/non-identical selector rows (mimc_composer.cpp:118-155)."""
+        self._flush_mimc()
+        # the base rows go through the overridden _push, which already
+        # zero-pads the mimc selectors
+        super().create_dummy_gates()
+        # q_mimc_selector = 1 row over zero wires (satisfied: next row w_3=0)
+        super()._push(self.zero_idx, self.zero_idx, self.zero_idx,
+                      0, 0, 0, 0, 0)
+        self.q_mimc_coefficient.append(0)
+        self.q_mimc_selector.append(1)
+        super()._push(self.zero_idx, self.zero_idx, self.zero_idx,
+                      0, 0, 0, 0, 0)
+        self.q_mimc_coefficient.append(1)
+        self.q_mimc_selector.append(0)
+
+    def compute_proving_key(self) -> ProvingKey:
+        if self._pk is not None:
+            return self._pk
+        self._flush_mimc()
+        num_pub = len(self.public_inputs)
+        size = self.subgroup_size()
+        srs = self.crs_factory.get_prover_srs(size + 1)
+        pk = ProvingKey(size, num_pub, srs, self.settings, self.device)
+        for name, coeffs in (
+            ("q_m", self.q_m), ("q_c", self.q_c), ("q_1", self.q_1),
+            ("q_2", self.q_2), ("q_3", self.q_3),
+            ("q_mimc_coefficient", self.q_mimc_coefficient),
+            ("q_mimc_selector", self.q_mimc_selector),
+        ):
+            padded = (
+                [0] * num_pub + list(coeffs)
+                + [0] * (size - 1 - self.n - num_pub) + [1]
+            )
+            pk.add_polynomial("selector", name,
+                              ints_to_mont(padded, self.device))
+        next_rows, factor_idx = self.compute_sigma_mappings(size, 3)
+        for i in range(3):
+            lag = kernels.sigma_from_mapping(
+                torch.from_numpy(next_rows[i]), torch.from_numpy(factor_idx[i]),
+                pk.omega_pows, size,
+            )
+            pk.add_polynomial("permutation", f"sigma_{i+1}", lag,
+                              keep_lagrange=True)
+        self._pk = pk
+        return pk
+
+    def compute_witness(self):
+        self._flush_mimc()
+        return super().compute_witness()
+
+    def _flavor(self):
+        from .flavors import MimcFlavor
+
+        return MimcFlavor
+
+    def _unrolled_flavor(self):
+        raise NotImplementedError("mimc composer has no unrolled settings "
+                                  "(matches the reference)")

@@ -1,11 +1,12 @@
 """Scheme flavors: the quotient kernel, the host linear-term scalars for
 r(X) and the verifier's [D]_1, and the verifier's quotient-evaluation
-reconstruction, for Standard PLONK and TurboPlonk, each with the keccak
-transcript and unrolled (the Pedersen-Blake2s transcript, no
-linearisation).
+reconstruction, for Standard PLONK, TurboPlonk and UltraPlonk, each with
+the keccak transcript and unrolled (the Pedersen-Blake2s transcript, no
+linearisation), and for the MiMC composer (keccak only).  UltraPlonk's
+prover hooks build the plookup sorted list and grand product.
 
-Port of aztec_tpu/plonk/flavors.py but its Ultra and MiMC flavors.  All
-host scalar math is canonical-int mod r.
+Port of aztec_tpu/plonk/flavors.py.  All host scalar math is canonical-int
+mod r.
 """
 
 from __future__ import annotations
@@ -13,7 +14,10 @@ from __future__ import annotations
 import torch
 
 from ..ff.bn254 import FR_MOD, FR_COSET_GENERATORS
-from .manifests import STANDARD, TURBO, UNROLLED_STANDARD, UNROLLED_TURBO
+from .manifests import (
+    MIMC, STANDARD, TURBO, ULTRA, UNROLLED_STANDARD, UNROLLED_TURBO,
+    UNROLLED_ULTRA,
+)
 from . import kernels
 
 M = FR_MOD
@@ -24,29 +28,47 @@ QUARTER_SLICES = 8
 
 
 def _quotient(pk, wire_mono, wire_fft, width, selectors, terms, chs, n,
-              shifted_wires=True):
+              shifted_wires=True, extra=()):
     """The quotient's evaluations over the 4n coset, (16, 4n) in the coset's
-    order, by ``terms`` (``kernels._std_terms`` / ``_turbo_terms``) lane by
-    lane.  A key with 4n coset forms (``pk.quarters`` false) is read as it
-    stands; otherwise each coset quarter's evaluations are computed from
-    the monomials (``pk.quarter``) and its lanes evaluated in
-    ``QUARTER_SLICES`` slices; lane k of quarter j is the coset's point
-    4k + j, so the next point of the small domain is lane k + 1 of the
-    same quarter.  Every lane runs the same formula either way.  Without
-    ``shifted_wires`` (no gate of the flavor reads the next row's wires)
-    ``terms`` gets None for them."""
+    order, by ``terms`` (``kernels._std_terms``, ``_turbo_terms``,
+    ``_ultra_terms``, ``_mimc_terms``) lane by lane.  A key with 4n coset
+    forms (``pk.quarters`` false) is read as it stands; otherwise each
+    coset quarter's evaluations are computed from the monomials
+    (``pk.quarter``) and its lanes evaluated in ``QUARTER_SLICES`` slices;
+    lane k of quarter j is the coset's point 4k + j, so the next point of
+    the small domain is lane k + 1 of the same quarter.  Every lane runs
+    the same formula either way.  Without ``shifted_wires`` (no gate of
+    the flavor reads the next row's wires) ``terms`` gets None for them.
+
+    ``extra``: (name, shifted) pairs of further polynomials, the prover's
+    (``wire_mono`` / ``wire_fft``) or the key's selectors; ``terms`` then
+    gets one more argument, a dict of their planes by name and, for the
+    shifted ones, by ``<name>_omega`` at the next point."""
     wires = [f"w_{i}" for i in range(1, width + 1)]
     sigmas = [f"sigma_{i}" for i in range(1, width + 1)]
+
+    def poly(name, fft):
+        """A prover polynomial or a key selector, 4n form or monomial."""
+        if name in wire_mono:
+            return wire_fft[name] if fft else wire_mono[name]
+        store = pk.selectors[name]
+        return store.fft if fft else store.monomial
+
     if not pk.quarters:
         w = [wire_fft[x].contiguous() for x in wires]
         z, l1 = wire_fft["z"], pk.l1_fft
         ww = [kernels._rolled(x, 4) for x in w] if shifted_wires else None
+        ext = {}
+        for name, shifted in extra:
+            ext[name] = poly(name, True)
+            if shifted:
+                ext[f"{name}_omega"] = kernels._rolled(ext[name], 4)
         return terms(w, ww,
                      [pk.sigmas[x].fft for x in sigmas], z,
                      kernels._rolled(z, 4),
                      [pk.selectors[x].fft for x in selectors], l1,
                      kernels._rolled(l1, 20), pk.coset_pts, pk.vanish_scale,
-                     *chs)
+                     *chs, *((ext,) if extra else ()))
     S = QUARTER_SLICES
     m = n // S
     out = torch.empty((16, n, 4), dtype=torch.int32, device=pk.device)
@@ -61,6 +83,7 @@ def _quotient(pk, wire_mono, wire_fft, width, selectors, terms, chs, n,
         sg = [sliced(evaluate(pk.sigmas[x].monomial)) for x in sigmas]
         q = [sliced(evaluate(pk.selectors[x].monomial)) for x in selectors]
         z = sliced(evaluate(wire_mono["z"]))
+        ex = {name: sliced(evaluate(poly(name, False))) for name, _ in extra}
         del evaluate           # and with it the quarter's powers table
         l1, pts, vs = sliced(l1), sliced(pts), sliced(vs)
         for si in range(S):
@@ -71,12 +94,18 @@ def _quotient(pk, wire_mono, wire_fft, width, selectors, terms, chs, n,
                 i = (lanes + k) % n
                 return x[i // m, :, i % m].t().contiguous()
 
+            ext = {}
+            for name, shifted in extra:
+                ext[name] = ex[name][si]
+                if shifted:
+                    ext[f"{name}_omega"] = ahead(ex[name], 1)
             out[:, si * m:(si + 1) * m, j] = terms(
                 [x[si] for x in w],
                 [ahead(x, 1) for x in w] if shifted_wires else None,
                 [x[si] for x in sg], z[si], ahead(z, 1), [x[si] for x in q],
-                l1[si], ahead(l1, 5), pts[si], vs[si], *chs)
-        del w, sg, q, z
+                l1[si], ahead(l1, 5), pts[si], vs[si], *chs,
+                *((ext,) if extra else ()))
+        del w, sg, q, z, ex
     return out.view(16, 4 * n)
 
 
@@ -169,6 +198,36 @@ class StandardFlavor:
     def verifier_t_contribution(ev, ch, l_start, l_end, delta):
         # arithmetic widget adds no non-linear terms under linearisation
         return _perm_t_contribution(ev, ch, l_start, l_end, delta, 3)
+
+
+class MimcFlavor(StandardFlavor):
+    """MiMC composer flavor (ref: mimc_widget.hpp:8-60): standard PLONK
+    plus the x^7 block-cipher gate at alpha^5..6, which reads w_3 at the
+    next row."""
+
+    settings = MIMC
+    width = 3
+
+    @staticmethod
+    def quotient_evals(pk, wire_mono, wire_fft, ch_mont, n):
+        return _quotient(
+            pk, wire_mono, wire_fft, 3,
+            ("q_m", "q_1", "q_2", "q_3", "q_c", "q_mimc_coefficient",
+             "q_mimc_selector"),
+            kernels._mimc_terms, (ch_mont["alpha"], ch_mont["beta"],
+                                  ch_mont["gamma"], ch_mont["delta"]), n)
+
+    @staticmethod
+    def selector_linear_scalars(ev, ch):
+        scalars = StandardFlavor.selector_linear_scalars(ev, ch)
+        al = ch["alpha"]
+        a5 = pow(al, 5, M)
+        a6 = a5 * al % M
+        T0 = (ev["w_1"] + ev["w_3"] + ev["q_mimc_coefficient"]) % M
+        T1 = (T0 * T0 % M * T0 - ev["w_2"]) % M
+        T2 = (ev["w_2"] * ev["w_2"] % M * T0 - ev["w_3_omega"]) % M
+        scalars["q_mimc_selector"] = (T1 * a5 + T2 * a6) % M
+        return scalars
 
 
 class TurboFlavor:
@@ -345,9 +404,141 @@ class UnrolledTurboFlavor(TurboFlavor):
         return t
 
 
+# the plookup polynomials the Ultra quotient reads, and whether it reads
+# each at the next point too
+LOOKUP_POLYS = (
+    tuple((f"table_{i}", True) for i in range(1, 5))
+    + (("q_lookup", False), ("q_index", False), ("s_1", True),
+       ("s_2", False), ("z_lookup", True))
+)
+
+
+class UltraFlavor(TurboFlavor):
+    """UltraPlonk: turbo gate set + plookup argument (reserved slots
+    polynomial_manifest.hpp:23-46, lookup_tables.md).  Unlinearised; the
+    prover hooks commit S_1/S_2 after eta and Z_LOOKUP alongside Z."""
+
+    settings = ULTRA
+    uses_lookups = True
+    num_alphas = 24
+
+    # -- prover hooks ---------------------------------------------------------
+    @staticmethod
+    def after_eta(prover):
+        """Build the sorted-list halves h1/h2 (host), blind, commit S_1/S_2."""
+        from ..poly import fft_ops as pfft
+        from .lookup_tables import build_sorted_halves
+        from .proving_key import ints_to_mont
+
+        eta = prover.transcript.get_challenge_fr("eta")
+        aux = prover.aux
+        n = prover.n
+        m = n - prover.settings.num_roots_cut_out_of_vanishing_polynomial
+        h1, h2 = build_sorted_halves(aux["tables"], aux["lookups"], eta, m)
+        h1 = h1 + [0] * (n - len(h1))
+        h2 = h2 + [0] * (n - len(h2))
+        for name, vals in (("s_1", h1), ("s_2", h2)):
+            lag = prover._blind(ints_to_mont(vals, prover.device), 3, n - 3)
+            prover.wires_lagrange[name] = lag
+            prover.wire_mono[name] = pfft.ifft(lag, prover.key.small_domain)
+        prover._commit(prover.wire_mono["s_1"], "S_1")
+        prover._commit(prover.wire_mono["s_2"], "S_2")
+
+    @staticmethod
+    def third_round_extra(prover):
+        """Z_LOOKUP grand product + commitment (its three randoms drawn
+        after Z's, as the reference draws them), and the coset FFTs of
+        S_1, S_2 and Z_LOOKUP for a key with stored 4n forms."""
+        from ..poly import fft_ops as pfft
+
+        key = prover.key
+        lag = prover.wires_lagrange
+        eta = prover._fr(prover.transcript.get_challenge_fr("eta"))[:, None]
+        beta = prover._fr(prover._challenge("beta", 0))[:, None]
+        gamma = prover._fr(prover._challenge("beta", 1))[:, None]
+        randoms = torch.stack([prover._fr(prover.rng()) for _ in range(3)],
+                              dim=1)
+        zl = kernels.lookup_grand_product(
+            [lag[f"w_{i}"] for i in range(1, 4)],
+            key.selectors["q_lookup"].lagrange,
+            key.selectors["q_index"].lagrange,
+            [key.selectors[f"table_{i}"].lagrange for i in range(1, 5)],
+            lag["s_1"], lag["s_2"], eta, beta, gamma, randoms, prover.n)
+        zl_mono = pfft.ifft(zl, key.small_domain)
+        del zl
+        prover.wire_mono["z_lookup"] = zl_mono
+        prover._commit(zl_mono, "Z_LOOKUP")
+        if key.quarters:
+            return  # the quotient evaluates the monomials by coset quarters
+        for tag in ("s_1", "s_2", "z_lookup"):
+            prover.wire_fft[tag] = pfft.coset_fft(
+                key._extend(prover.wire_mono[tag]), key.large_domain)
+
+    # -- quotient -------------------------------------------------------------
+    @classmethod
+    def quotient_evals(cls, pk, wire_mono, wire_fft, ch_mont, n):
+        return _quotient(
+            pk, wire_mono, wire_fft, 4, cls.SELECTOR_ORDER,
+            kernels._ultra_terms, (ch_mont["alphas"], ch_mont["beta"],
+                                   ch_mont["gamma"], ch_mont["delta"],
+                                   ch_mont["eta"]), n,
+            extra=LOOKUP_POLYS)
+
+    # -- verifier -------------------------------------------------------------
+    @staticmethod
+    def _lookup_t_terms(ev, ch, l_start, l_end):
+        eta, beta, gamma, alpha = ch["eta"], ch["beta"], ch["gamma"], ch["alpha"]
+        ap = [pow(alpha, k, M) for k in range(24)]
+        F = (
+            ev["q_lookup"]
+            * ((ev["w_1"] + eta * (ev["w_2"] + eta * (ev["w_3"]
+               + eta * ev["q_index"]))) % M)
+        ) % M
+        T = (ev["table_1"] + eta * (ev["table_2"] + eta * (ev["table_3"]
+             + eta * ev["table_4"]))) % M
+        Tw = (ev["table_1_omega"] + eta * (ev["table_2_omega"]
+              + eta * (ev["table_3_omega"] + eta * ev["table_4_omega"]))) % M
+        one_p_beta = (1 + beta) % M
+        gamma_pb = gamma * one_p_beta % M
+        num = (
+            one_p_beta * ((gamma + F) % M) % M
+            * ((T + beta * Tw + gamma_pb) % M) % M * ev["z_lookup"]
+        ) % M
+        den = (
+            (ev["s_1"] + beta * ev["s_2"] + gamma_pb) % M
+            * ((ev["s_2"] + beta * ev["s_1_omega"] + gamma_pb) % M) % M
+            * ev["z_lookup_omega"]
+        ) % M
+        t = (num - den) * ap[21] % M
+        t = (t + (ev["z_lookup"] - 1) * l_start % M * ap[22]) % M
+        t = (t + (ev["z_lookup_omega"] - 1) * l_end % M * ap[23]) % M
+        return t
+
+    @classmethod
+    def verifier_t_contribution(cls, ev, ch, l_start, l_end, delta):
+        t = _perm_t_contribution(ev, ch, l_start, l_end, delta, 4,
+                                 use_linearisation=False)
+        t = (t + TurboFlavor._nonlinear_t_terms(ev, ch)) % M
+        for sel, scalar in cls.selector_linear_scalars(ev, ch).items():
+            t = (t + scalar * ev[sel]) % M
+        t = (t + cls._lookup_t_terms(ev, ch, l_start, l_end)) % M
+        return t
+
+
+class UnrolledUltraFlavor(UltraFlavor):
+    """UltraPlonk with the recursion transcript (Pedersen+Blake2s, 16-byte
+    challenges).  The quotient math is UltraFlavor's (Ultra is already
+    unlinearised); only the Fiat-Shamir hashing changes, so its proofs can
+    be verified inside an outer circuit (stdlib/recursion_verifier.py)."""
+
+    settings = UNROLLED_ULTRA
+
+
 FLAVORS = {
     "standard": StandardFlavor,
     "turbo": TurboFlavor,
     "unrolled_standard": UnrolledStandardFlavor,
     "unrolled_turbo": UnrolledTurboFlavor,
+    "ultra": UltraFlavor,
+    "unrolled_ultra": UnrolledUltraFlavor,
 }

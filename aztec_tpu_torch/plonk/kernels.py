@@ -1,11 +1,12 @@
-"""Prover-round device kernels of Standard PLONK and TurboPlonk.
+"""Prover-round device kernels of Standard, Turbo, Ultra and MiMC PLONK.
 
-Port of aztec_tpu/plonk/kernels.py but its lookup, MiMC and elliptic
-kernels: ``grand_product``, ``_perm_quotient``, the Standard quotient
-(``_std_terms``) and the Turbo quotient (``_turbo_terms``; both take their
-operands lane by lane, so the prover evaluates them over the 4n coset or a
-quarter of it, ``flavors._quotient``), ``linear_combination``,
-``sigma_from_mapping`` and ``vanishing_scale_table``.  Every field op goes through the K1 wrappers
+Port of aztec_tpu/plonk/kernels.py: ``grand_product`` and the plookup
+``lookup_grand_product``, ``_perm_quotient``, the Standard, Turbo, Ultra
+and MiMC quotients (``_std_terms``, ``_turbo_terms``, ``_ultra_terms``,
+``_mimc_terms``: each takes its operands lane by lane, so the prover
+evaluates it over the 4n coset or a quarter of it, ``flavors._quotient``),
+``elliptic_identity``, ``linear_combination``, ``sigma_from_mapping`` and
+``vanishing_scale_table``.  Every field op goes through the K1 wrappers
 (``ff/field_kernels.py``), so on the card each is one elementwise kernel
 launch; the associative scans of the reference become Hillis-Steele scans
 (``limb.scan_mul``), exact in any order.
@@ -282,6 +283,153 @@ def _turbo_terms(w, ww, s, z, zw, q, l1, lend, pts, vanish_scale, alphas,
 
     total = _add(_add(perm, arith), _add(fb, _add(rng, logic)))
     return _mul(total, vanish_scale)
+
+
+def _compress4(a, b, c, d, eta):
+    """a + eta b + eta^2 c + eta^3 d via Horner (Montgomery planes)."""
+    return _add(a, _mul(eta, _add(b, _mul(eta, _add(c, _mul(eta, d))))))
+
+
+def _lookup_pair_terms(F, T, Tw, h1, h2, h1w, beta, gamma):
+    """The plookup product's numerator and denominator at each lane:
+    (1+b)(g + F)(g(1+b) + T + b T(w)) and
+    (g(1+b) + h1 + b h2)(g(1+b) + h2 + b h1(w))."""
+    one_p_beta = _add(beta, _c(1, F.device))
+    gamma_pb = _mul(gamma, one_p_beta)
+    num = _mul(_mul(one_p_beta, _add(gamma, F)),
+               _add(_add(T, _mul(beta, Tw)), gamma_pb))
+    den = _mul(_add(_add(h1, _mul(beta, h2)), gamma_pb),
+               _add(_add(h2, _mul(beta, h1w)), gamma_pb))
+    return num, den
+
+
+def lookup_grand_product(wires, q_lookup, q_index, tables, h1, h2, eta, beta,
+                         gamma, randoms, n: int):
+    """Plookup grand product Z_LOOKUP(X) in lagrange form, blinded.
+
+    Per enforced row i (the sorted list stored as even/odd halves h1/h2 so
+    both pair products are row-local):
+
+      z_{i+1}/z_i = (1+b)(g + F_i)(g(1+b) + T_i + b T_{i+1})
+                    / [(g(1+b) + h1_i + b h2_i)(g(1+b) + h2_i + b h1_{i+1})]
+
+    F = q_lookup * (w1 + eta w2 + eta^2 w3 + eta^3 q_index);
+    T = t1 + eta t2 + eta^2 t3 + eta^3 t4.  The scan and single-inversion
+    structure of ``grand_product``; blinding at rows n-3 .. n-1.
+
+    wires: (16, >= 3, n) or >= 3 planes; tables: (16, 4, n) or 4 planes;
+    h1/h2: (16, n); eta/beta/gamma: (16, 1); randoms: (16, 3)."""
+    w, t = _cols(wires), _cols(tables)
+    F = _mul(q_lookup, _compress4(w[0], w[1], w[2], q_index, eta))
+    T = _compress4(t[0], t[1], t[2], t[3], eta)
+    num, den = _lookup_pair_terms(F, T, _rolled(T, 1), h1, h2, _rolled(h1, 1),
+                                  beta, gamma)
+    prefix_num = limb.scan_mul(num, FR, axis=1)
+    suffix_den = limb.scan_mul(den, FR, axis=1, reverse=True)
+    inv_total = limb.inv_mont(suffix_den[:, :1], FR)
+    zrest = _mul(_mul(prefix_num[:, : n - 1], suffix_den[:, 1:]), inv_total)
+    z = torch.cat([_c(1, h1.device), zrest], dim=1)
+    z[:, n - 4 + 1: n - 4 + 1 + randoms.shape[1]] = randoms
+    return z
+
+
+def _lookup_terms(w, x, l1, lend, a, eta, beta, gamma):
+    """Plookup quotient terms (alpha^21..23), lane by lane: (num - den)
+    over the identity rows, L_1 (z_lookup - 1) and L_end (z_lookup(Xw) -
+    1) at the boundaries.  w: the wires; x: the lookup polynomials by name
+    (``table_1..4``, ``q_lookup``, ``q_index``, ``s_1``, ``s_2``,
+    ``z_lookup``) and, with ``_omega``, the tables, ``s_1`` and
+    ``z_lookup`` at the next point of the small domain."""
+    F = _mul(x["q_lookup"], _compress4(w[0], w[1], w[2], x["q_index"], eta))
+    T = _compress4(*(x[f"table_{i}"] for i in range(1, 5)), eta)
+    Tw = _compress4(*(x[f"table_{i}_omega"] for i in range(1, 5)), eta)
+    zl, zlw = x["z_lookup"], x["z_lookup_omega"]
+    num, den = _lookup_pair_terms(F, T, Tw, x["s_1"], x["s_2"],
+                                  x["s_1_omega"], beta, gamma)
+    num = _mul(num, zl)
+    den = _mul(den, zlw)
+    one = _c(1, zl.device)
+    t = _mul(_sub(num, den), a(21))
+    t = _add(t, _mul(_mul(_sub(zl, one), l1), a(22)))
+    return _add(t, _mul(_mul(_sub(zlw, one), lend), a(23)))
+
+
+def _ultra_terms(w, ww, s, z, zw, q, l1, lend, pts, vanish_scale, alphas,
+                 beta, gamma, delta, eta, x):
+    """UltraPlonk quotient, lane by lane: the Turbo terms with the
+    division deferred (scaled by a plane of ones, as the reference does),
+    plus the plookup terms (``_lookup_terms``, the lookup polynomials in
+    ``x``), then the vanishing scale."""
+    a = lambda p: alphas[:, p - 1: p]  # noqa: E731
+    turbo = _turbo_terms(w, ww, s, z, zw, q, l1, lend, pts,
+                         _c(1, pts.device), alphas, beta, gamma, delta)
+    lk = _lookup_terms(w, x, l1, lend, a, eta, beta, gamma)
+    return _mul(_add(turbo, lk), vanish_scale)
+
+
+def _mimc_terms(w, ww, s, z, zw, q, l1, lend, pts, vanish_scale, alpha, beta,
+                gamma, delta):
+    """MiMC-composer quotient, lane by lane: Standard PLONK + the x^7
+    block-cipher gate (ref: mimc_widget.hpp:8-60: T0 = w1 + w3 +
+    q_mimc_coeff, T1 = T0^3 - w2, T2 = w2^2 T0 - w3(Xw), contribution
+    (T1 alpha^5 + T2 alpha^6) q_mimc_selector).  q: qm q1 q2 q3 qc
+    q_mimc_coefficient q_mimc_selector; ww[2] is w3 at the next point."""
+    w1, w2, w3 = w
+    perm = _perm_quotient(w, s, z, zw, l1, lend, pts, alpha, beta, gamma,
+                          delta)
+    alpha_sqr = _mul(alpha, alpha)
+    alpha_quad = _mul(alpha_sqr, alpha_sqr)
+    arith = _mul(q[0], _mul(w1, w2))
+    arith = _add(arith, _mul(q[1], w1))
+    arith = _add(arith, _mul(q[2], w2))
+    arith = _add(arith, _mul(q[3], w3))
+    arith = _add(arith, q[4])
+    arith = _mul(arith, alpha_quad)
+
+    a5 = _mul(alpha_quad, alpha)
+    a6 = _mul(a5, alpha)
+    T0 = _add(_add(w1, w3), q[5])
+    T1 = _sub(_mul(_mul(T0, T0), T0), w2)
+    T2 = _sub(_mul(_mul(w2, w2), T0), ww[2])
+    mimc = _mul(_add(_mul(T1, a5), _mul(T2, a6)), q[6])
+    return _mul(_add(_add(perm, arith), mimc), vanish_scale)
+
+
+def elliptic_identity(wffts, q_beta, q_beta_sqr, q_sign, q_elliptic, alpha,
+                      alpha2):
+    """EllipticKernel identities (ref: elliptic_widget.hpp:8-80, the ecc
+    add gate family; as in the reference, no composer instantiates it).
+
+    wffts: (16, 4, rows) wires in gate layout or 4 planes; the shifted
+    access is the next row ((x_1, y_1) at row i in w_2/w_3, (x_2, y_2) at
+    row i+1 in w_1/w_4, (x_3, y_3) at row i+1 in w_2/w_3).  Returns the
+    combined x/y identity at each row (zero on satisfied gates)."""
+    w1, w2, w3, w4 = _cols(wffts)
+    x_1, y_1 = w2, w3
+    x_2 = _rolled(w1, 1)
+    y_2 = _rolled(w4, 1)
+    x_3 = _rolled(w2, 1)
+    y_3 = _rolled(w3, 1)
+
+    zero = torch.zeros_like(x_2)
+    beta_term = _mul(_sub(zero, _mul(x_2, x_1)), _add(_add(x_3, x_3), x_1))
+    x2_sqr = _mul(x_2, x_2)
+    beta_sqr_term = _mul(x2_sqr, _sub(x_3, x_1))
+    sign_term = _mul(y_2, y_1)
+    sign_term = _add(sign_term, sign_term)
+    leftovers = _mul(x2_sqr, x_2)
+    leftovers = _add(leftovers, _mul(_mul(x_1, x_1), _add(x_3, x_1)))
+    leftovers = _sub(leftovers, _add(_mul(y_2, y_2), _mul(y_1, y_1)))
+    x_identity = _add(
+        _add(_mul(beta_term, q_beta), _mul(beta_sqr_term, q_beta_sqr)),
+        _add(_mul(sign_term, q_sign), leftovers))
+    x_identity = _mul(x_identity, alpha)
+
+    beta_term = _mul(_mul(x_2, _add(y_3, y_1)), q_beta)
+    sign_term = _sub(zero, _mul(_mul(y_2, _sub(x_1, x_3)), q_sign))
+    leftovers = _sub(_mul(y_1, _sub(x_1, x_3)), _mul(x_1, _add(y_3, y_1)))
+    y_identity = _mul(_add(_add(beta_term, sign_term), leftovers), alpha2)
+    return _mul(_add(x_identity, y_identity), q_elliptic)
 
 
 def linear_combination(stack, scalars):

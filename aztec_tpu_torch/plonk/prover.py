@@ -145,14 +145,18 @@ class Prover:
         z_lag = kernels.grand_product(
             wires, sigmas, beta, gamma, self.key.omega_pows, randoms, self.n
         )
-        # no later round reads the wires' lagrange forms
         del wires
-        self.wires_lagrange = {}
+        extra = getattr(self.flavor, "third_round_extra", None)
+        if extra is None:
+            # no later round reads the wires' lagrange forms
+            self.wires_lagrange = {}
         z_mono = pfft.ifft(z_lag, self.key.small_domain)
         self.wire_mono["z"] = z_mono
         self._commit(z_mono, "Z")
-        if hasattr(self.flavor, "third_round_extra"):
-            self.flavor.third_round_extra(self)
+        if extra is not None:
+            # the lookup product reads w_1..w_3, s_1 and s_2 in lagrange form
+            extra(self)
+            self.wires_lagrange = {}
 
         if self.key.quarters:
             # the quotient evaluates the monomials by coset quarters
@@ -186,6 +190,8 @@ class Prover:
             "gamma": self._fr(gamma_i)[:, None],
             "delta": self._fr(delta)[:, None],
         }
+        if getattr(self.flavor, "uses_lookups", False):
+            ch_mont["eta"] = self._fr(self._challenge("eta"))[:, None]
         quotient_evals = self.flavor.quotient_evals(
             self.key, self.wire_mono, self.wire_fft, ch_mont, self.n
         )

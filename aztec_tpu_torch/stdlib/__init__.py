@@ -6,9 +6,9 @@ use: ``uint``/``uint32``, ``byte_array``, the in-circuit Blake2s, the
 recursion transcript, native-group points, Schnorr verification and Merkle
 membership, and the rollup circuits' recursion: ``bigfield`` (Fq in Fr
 circuits), ``biggroup`` (BN254 G1 over it) and ``recursion_verifier``
-(an unrolled proof verified in-circuit).  Port of aztec_tpu/stdlib/; not
-ported yet: ``bit_array``, ``packed_byte_array``, ``sha256_circuit`` and
-``mimc_circuit``.
+(an unrolled proof verified in-circuit), and the MiMC7 hash
+(``mimc_circuit``).  Port of aztec_tpu/stdlib/; not ported yet:
+``bit_array``, ``packed_byte_array`` and ``sha256_circuit``.
 """
 
 from .field_t import FieldT, BoolT, witness, constant, public_witness  # noqa: F401

@@ -100,6 +100,27 @@ read just after:
     the worker's peak device memory; both proofs' sha256; the worker's
     imports hold neither JAX nor the JAX package; the worker's launches
     join the path counts;
+5e. UltraPlonk, in a process of its own (``--ultra``): the committed small
+    Ultra vectors (the JAX package's Keccak and unrolled proofs of
+    make_vectors.py's ``ultra_drive``) proved byte for byte; then, as a
+    path, aztec_tpu_torch/tools/ultra_circuit.py's 2^20-gate circuit
+    (196,608 rows of a range, an XOR and an AND table; 2^15 64-bit range
+    decompositions and 2^17 table reads by lookup; a mul chain) built,
+    keyed, its VK computed, proved cold (Keccak) and, with fresh witness
+    values, keyed and proved warm against the first VK, then profiled (the
+    build, key, VK, round and proof seconds, ``after_eta``'s among them,
+    the warm proof's launches, kernel time, idle share and peak device
+    memory printed); as another path the same generator at 2^17 proved
+    unrolled (its pairing inputs non-null, the Keccak verifier rejecting
+    it); a lookup outside every table raises ValueError;
+5f. the escape-hatch circuit at the production tree depths (32, 256, 28;
+    one tx with two real input notes): 26 public inputs, ``check_turbo``
+    clean, keyed, proved with the Keccak Turbo prover, verified, a tamper
+    rejected; the tx with a fee of 1 (at depth 3) fails its constraints;
+5g. MiMC7 in MiMC gates on the ``MiMCComposer`` at 2^17 gates:
+    ``check_mimc`` clean, keyed, proved twice and verified, a tamper
+    rejected; then, outside the path, ``elliptic_identity`` over 2^16 rows
+    on the card against its result on the CPU (the plain versions);
 6. the MSM engine at full width: phase 3's MSM through
    ``msm(..., MSMConfig(c=16, block=64, bucket_block=64, glv=True))`` (the
    packed branch: K3 and K4 once a round) and through the staged rounds,
@@ -124,7 +145,8 @@ read just after:
     2^17 proof less the bound of the elements it ran over; each kernel's
     launches over the paths times its device ms less its bound), a JSON
     line with every kernel's launches summed over the paths, times, bound
-    and launches in a warm join-split proof, then the card's name and power
+    and launches in a warm join-split, 2^20 Ultra and escape-hatch proof,
+    then the card's name and power
     limit, then the result line.
 
 Exits 2 without a result when CUDA is missing or the package is not beside
@@ -144,6 +166,11 @@ prover's two memory plans on the 2^17 Turbo circuit (keccak and unrolled)
 and the 2^20 chain circuit: keyed and proved under the counter rng with
 the key's 4n coset forms and by coset quarters, the same bytes, each
 plan's key and proof seconds and peak device memory.
+
+``python3 chip_smoke.py --ultra`` runs phase 5e alone, ``--ultra-recursion``
+the in-circuit verifier (a TurboComposer of about 8.4M gates) over the 2^17
+unrolled-Ultra proof: its P0/P1 against the native verifier's pairing
+inputs, ``check_turbo`` clean (a one-off: not in the whole smoke, for time).
 
 ``python3 chip_smoke.py --warm-proofs`` times the stored-coset prover's
 warm proofs (2^17 Standard, 2^17 Turbo keccak and unrolled, the depth-32
@@ -342,6 +369,22 @@ WORKER_GATES = 1 << 10
 TOWER_TXS = 1          # the rollup tower's txs (tools/rollup_tower.py's)
 TOWER_TIMEOUT = 900    # seconds the tower's worker may take
 WARM_REPS = 5          # warm proofs a case of ``--warm-proofs``
+# Phase 5e: tools/ultra_circuit.py's circuit at 2^20 gates (the tables and
+# lookup counts by subgroup size; 2^17's are smaller so that its tables fit)
+# and unrolled at 2^17, after the committed small Ultra vectors
+ULTRA_LOG2N = 20
+ULTRA_UNROLLED_LOG2N = 17
+ULTRA_SHAPES = {
+    20: dict(range_bits=16, logic_bits=8, ranges=1 << 15, logic=1 << 16),
+    17: dict(range_bits=14, logic_bits=6, ranges=1 << 12, logic=1 << 13),
+}
+ULTRA_SEEDS = (111, 112)
+ULTRA_VECTORS = ("ultra_drive", "unrolled_ultra_drive")
+# Phase 5f: the escape hatch at rollup/constants.py's tree depths (data,
+# nullifier, root); phase 5g: MiMC gates and the elliptic widget's rows
+ESCAPE_DEPTHS = (32, 256, 28)
+MIMC_LOG2N = 17
+ELLIPTIC_ROWS = 1 << 16
 
 
 def log(msg: str) -> None:
@@ -1960,7 +2003,7 @@ def turbo_vectors(device: str = "cuda", names=TURBO_VECTORS) -> None:
             raise AssertionError(f"{name}: VK differs from the vector's")
         if not mv.make_verifier(c, name).verify_proof(proof):
             raise AssertionError(f"{name}: the port's verifier rejects it")
-        log(f"turbo vector {name}: n={vk.n} proof of {len(proof)} bytes and "
+        log(f"vector {name}: n={vk.n} proof of {len(proof)} bytes and "
             f"{len(want)} VK commitments equal {producer}'s vector; "
             "verified")
 
@@ -2148,22 +2191,29 @@ def turbo_profile(log2n: int = 17) -> int:
     return 0
 
 
-def profile_turbo_fresh() -> None:
-    """Phase 5b, last: ``--turbo-profile`` in a process of its own, its
-    lines relayed; it fails the smoke if it fails."""
+def fresh_process(flag: str) -> list:
+    """``python3 chip_smoke.py <flag>`` in a process of its own (the card's
+    cache emptied first), its lines relayed; it fails the smoke if it
+    fails.  Returns its output lines."""
     import subprocess
 
     import torch
 
     torch.cuda.empty_cache()
-    out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--turbo-profile"], capture_output=True, text=True,
-                         timeout=900)
-    for line in out.stdout.splitlines():
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                         capture_output=True, text=True, timeout=900)
+    lines = out.stdout.splitlines()
+    for line in lines:
         log(f"  {line}")
     if out.returncode != 0:
-        raise AssertionError(f"--turbo-profile failed ({out.returncode}): "
+        raise AssertionError(f"{flag} failed ({out.returncode}): "
                              f"{out.stderr[-2000:]}")
+    return lines
+
+
+def profile_turbo_fresh() -> None:
+    """Phase 5b, last: ``--turbo-profile`` in a process of its own."""
+    fresh_process("--turbo-profile")
 
 
 def join_split_tx(depth: int = JOIN_SPLIT_DEPTH):
@@ -2772,6 +2822,383 @@ def tower_path(device: str = "cuda") -> dict:
     return launches
 
 
+# -- phase 5e: UltraPlonk --------------------------------------------------
+
+def build_ultra(log2n: int = ULTRA_LOG2N, seed: int = ULTRA_SEEDS[0],
+                device: str = "cuda"):
+    """aztec_tpu_torch/tools/ultra_circuit.py's circuit at 2^log2n gates,
+    with the table and lookup counts of ``ULTRA_SHAPES[log2n]``."""
+    import functools
+
+    from aztec_tpu_torch.plonk import lookup_tables
+    from aztec_tpu_torch.plonk.composer import (AddTriple, MulTriple,
+                                                UltraComposer)
+    from aztec_tpu_torch.tools import ultra_circuit
+
+    return ultra_circuit.build(
+        functools.partial(UltraComposer, device=device), lookup_tables,
+        MulTriple, AddTriple, log2n=log2n, seed=seed, **ULTRA_SHAPES[log2n])
+
+
+def timed_proof(prover, sync):
+    """``prover.construct_proof()`` round by round, synchronised after each
+    round's work and its queue's drain: (proof, {round: seconds})."""
+    spans = {}
+    for rnd in (prover.execute_preamble_round, prover.execute_first_round,
+                prover.execute_second_round, prover.execute_third_round,
+                prover.execute_fourth_round, prover.execute_fifth_round,
+                prover.execute_sixth_round):
+        t0 = time.perf_counter()
+        rnd()
+        sync()
+        t1 = time.perf_counter()
+        prover.queue.process_queue()
+        sync()
+        name = rnd.__name__.replace("execute_", "").replace("_round", "")
+        spans[name] = round(t1 - t0, 4)
+        spans[f"{name}_msm"] = round(time.perf_counter() - t1, 4)
+    return prover.transcript.export_transcript(), spans
+
+
+def ultra_2pow20(device: str = "cuda", log2n: int = ULTRA_LOG2N) -> dict:
+    """Phase 5e: tools/ultra_circuit.py's circuit at 2^log2n gates (lookups
+    in a range, an XOR and an AND table) built, keyed, its VK computed, and
+    proved once cold (Keccak; verified, a tamper rejected); then the same
+    circuit with fresh witness values (another seed) keyed again and proved
+    warm, verified against the first circuit's VK; then that warm proof
+    once more under torch.profiler (kernel time and the device's idle
+    share).  Prints each span, the second round's seconds (``after_eta``:
+    the sorted list on the host, S_1 and S_2), the warm proof's launches by
+    kernel and the peak device memory.  Returns the warm proof's
+    launches."""
+    import gc
+
+    import torch
+
+    from aztec_tpu_torch.ff import field_kernels as fk
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    label = f"ultra 2^{log2n}"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    spans = {}
+    t0 = time.perf_counter()
+    c = build_ultra(log2n, ULTRA_SEEDS[0], device)
+    spans["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c.compute_proving_key()
+    sync()
+    spans["key_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vk = c.compute_verification_key()
+    spans["vk_s"] = time.perf_counter() - t0
+    rows = sum(len(t.rows) for t in c.tables.values())
+    log(f"{label}: {c.n} gates, subgroup {vk.n}, {len(c._lookups)} lookups, "
+        f"{rows} table rows, {len(vk.commitments)} VK commitments; "
+        + " ".join(f"{k}={v:.2f}" for k, v in spans.items()))
+    verifier = c.create_verifier()
+    t0 = time.perf_counter()
+    proof, rounds = timed_proof(c.create_prover(), sync)
+    cold = time.perf_counter() - t0
+    if not verifier.verify_proof(proof):
+        raise AssertionError(f"{label}: the port's verifier rejects it")
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    if verifier.verify_proof(bytes(bad)):
+        raise AssertionError(f"{label}: a tampered proof verified")
+    log(f"{label}: cold proof of {len(proof)} bytes verifies, tamper "
+        f"rejected; prove_cold_s={cold:.3f} after_eta_s={rounds['second']}"
+        f" rounds {json.dumps(rounds)}")
+    if cuda:
+        peak_memory(f"{label}: the key, VK and a cold proof", c)
+    del c
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    c = build_ultra(log2n, ULTRA_SEEDS[1], device)
+    build2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c.compute_proving_key()
+    sync()
+    key2 = time.perf_counter() - t0
+    prover = c.create_prover()
+    before = dict(fk.LAUNCHES)
+    t0 = time.perf_counter()
+    proof, rounds = timed_proof(prover, sync)
+    warm = time.perf_counter() - t0
+    launches = {k: v - before.get(k, 0) for k, v in fk.LAUNCHES.items()
+                if v - before.get(k, 0)}
+    del prover
+    if not verifier.verify_proof(proof):
+        raise AssertionError(f"{label}: the first circuit's VK rejects the "
+                             "proof with fresh witnesses")
+    log(f"{label}: fresh witnesses: build_s={build2:.2f} key_s={key2:.2f} "
+        f"warm proof verifies against the first VK; prove_warm_s={warm:.3f}"
+        f" after_eta_s={rounds['second']} rounds {json.dumps(rounds)}")
+    log(f"{label}: launches per proof {sum(launches.values())}: "
+        f"{json.dumps(launches, sort_keys=True)}")
+    if cuda:
+        peak_memory(f"{label}: both keys and proofs", c)
+        busy_ms, by_name = profile_proof(c)
+        log(f"{label}: kernel time {busy_ms:.1f} ms, device idle share "
+            f"{1 - busy_ms / (warm * 1e3):.3f} of the warm proof; port "
+            "kernels " + json.dumps({k: round(v, 3)
+                                     for k, v in by_name.items()}))
+    return launches
+
+
+def ultra_bad_lookup(device: str = "cuda") -> None:
+    """Phase 5e: an Ultra circuit with a lookup that no table holds: its
+    proof raises ValueError (the sorted list cannot be built)."""
+    from aztec_tpu_torch.plonk.composer import UltraComposer
+    from aztec_tpu_torch.plonk.lookup_tables import range_table
+
+    c = UltraComposer(device=device)
+    c.add_lookup_table(range_table(3, index=1))
+    c.create_lookup_gate(c.add_variable(11), c.zero_idx, c.zero_idx, 1)
+    try:
+        c.create_prover().construct_proof()
+    except ValueError as e:
+        log(f"ultra: a lookup outside every table raises ValueError ({e})")
+        return
+    raise AssertionError("ultra: a lookup outside every table was proved")
+
+
+def unrolled_ultra(device: str = "cuda", log2n: int = ULTRA_UNROLLED_LOG2N):
+    """Phase 5e: ``build_ultra`` at 2^log2n, proved with the unrolled
+    (Pedersen-Blake2s) prover: the port's unrolled verifier accepts, its
+    pairing inputs are not null, the Keccak verifier rejects the proof.
+    Returns (composer, proof)."""
+    import torch
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    label = f"unrolled ultra 2^{log2n}"
+    t0 = time.perf_counter()
+    c = build_ultra(log2n, ULTRA_SEEDS[0], device)
+    build = time.perf_counter() - t0
+    c.compute_proving_key()
+    sync()
+    t0 = time.perf_counter()
+    proof = c.create_unrolled_prover().construct_proof()
+    sync()
+    secs = time.perf_counter() - t0
+    v = c.create_unrolled_verifier()
+    if not v.verify_proof(proof):
+        raise AssertionError(f"{label}: the unrolled verifier rejects it")
+    if v.pairing_inputs(proof) is None:
+        raise AssertionError(f"{label}: no pairing inputs")
+    if c.create_verifier().verify_proof(proof):
+        raise AssertionError(f"{label}: the Keccak verifier accepts it")
+    log(f"{label}: {c.n} gates, subgroup {c.subgroup_size()}, build_s="
+        f"{build:.2f}; proof of {len(proof)} bytes in {secs:.3f} s verifies "
+        "unrolled with pairing inputs, the Keccak verifier rejects it")
+    return c, proof
+
+
+def ultra_phase(device: str = "cuda") -> dict:
+    """Phase 5e (``--ultra``, and a process of its own in the whole smoke):
+    the committed Ultra vectors proved byte for byte, then the 2^20 path
+    and the 2^17 unrolled path, each with the launch counts cleared just
+    before it and read just after, and the bad lookup.  Returns
+    {"paths": {path: launches}, "per_proof": the 2^20 warm proof's}."""
+    from aztec_tpu_torch.ff import field_kernels as fk
+
+    turbo_vectors(device, ULTRA_VECTORS)
+    paths = {}
+    fk.LAUNCHES.clear()
+    per_proof = ultra_2pow20(device, ULTRA_LOG2N)
+    paths[f"proof_ultra_2pow{ULTRA_LOG2N}"] = dict(fk.LAUNCHES)
+    fk.LAUNCHES.clear()
+    unrolled_ultra(device, ULTRA_UNROLLED_LOG2N)
+    paths[f"proof_unrolled_ultra_2pow{ULTRA_UNROLLED_LOG2N}"] = dict(
+        fk.LAUNCHES)
+    ultra_bad_lookup(device)
+    return {"paths": paths, "per_proof": per_proof}
+
+
+def ultra_fresh() -> dict:
+    """Phase 5e in a process of its own (``--ultra``: a profiled figure is
+    taken in a fresh process, ROADMAP C5; the 2^20 stored-path prover's
+    memory is returned at its exit).  Returns its ``ultra_phase``
+    record."""
+    records = [json.loads(line)["ultra_phase"]
+               for line in fresh_process("--ultra")
+               if line.startswith('{"ultra_phase"')]
+    if len(records) != 1:
+        raise AssertionError("--ultra printed no ultra_phase record")
+    for name, counts in records[0]["paths"].items():
+        log(f"path {name} launches: {json.dumps(counts, sort_keys=True)}")
+    return records[0]
+
+
+def ultra_recursion(device: str = "cuda") -> None:
+    """``--ultra-recursion``: the in-circuit verifier over the 2^17
+    unrolled-Ultra proof (``unrolled_ultra``) on a TurboComposer: its P0/P1
+    equal the port's native ``pairing_inputs``, ``check_turbo`` is clean;
+    gates, subgroup and seconds printed."""
+    import dataclasses
+
+    from aztec_tpu_torch.plonk.circuit_check import check_turbo
+    from aztec_tpu_torch.plonk.composer import TurboComposer
+    from aztec_tpu_torch.plonk.manifests import UNROLLED_ULTRA
+    from aztec_tpu_torch.stdlib.recursion_verifier import verify_proof_circuit
+
+    inner, proof = unrolled_ultra(device)
+    want = inner.create_unrolled_verifier().pairing_inputs(proof)
+    vk = dataclasses.replace(inner.compute_verification_key(),
+                             settings=UNROLLED_ULTRA)
+    del inner
+    t0 = time.perf_counter()
+    c = TurboComposer(device=device)
+    out = verify_proof_circuit(c, proof, vk)
+    build = time.perf_counter() - t0
+    if c.failed:
+        raise AssertionError(f"ultra recursion: the circuit failed: {c.err}")
+    got = (out.P0.get_value(), out.P1.get_value())
+    if got != tuple(want):
+        raise AssertionError("ultra recursion: P0/P1 differ from the native "
+                             "verifier's pairing inputs")
+    t0 = time.perf_counter()
+    bad = check_turbo(c)
+    check = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"ultra recursion: {len(bad)} violated "
+                             f"identities, first {bad[:5]}")
+    log(f"ultra recursion: outer circuit over the unrolled-Ultra proof: "
+        f"{c.n} gates, subgroup {c.subgroup_size()}, build_s={build:.1f}; "
+        f"P0/P1 equal the native pairing inputs; check_turbo clean "
+        f"({check:.1f} s)")
+
+
+# -- phase 5f: the escape hatch ---------------------------------------------
+
+def escape_hatch_path(device: str = "cuda") -> dict:
+    """Phase 5f: the escape-hatch circuit at the production tree depths
+    (``ESCAPE_DEPTHS``, rollup/constants.py; one tx with two real input
+    notes, make_vectors.py's ``escape_hatch_tx``) built, its 26 public
+    inputs counted, checked by ``check_turbo``, keyed and proved with the
+    Keccak Turbo prover (verified, a tamper rejected); then the tx with a
+    fee of one at depth 3 fails its constraints.  Returns the proof's
+    launches by kernel."""
+    import torch
+
+    from aztec_tpu_torch.plonk import circuit_check
+    from aztec_tpu_torch.plonk.composer import TurboComposer
+    from aztec_tpu_torch.rollup.escape_hatch import escape_hatch_circuit
+
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_vectors"))
+    import make_vectors as mv
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    label = "escape hatch depths " + "/".join(map(str, ESCAPE_DEPTHS))
+    t0 = time.perf_counter()
+    tx = mv.escape_hatch_tx("aztec_tpu_torch", *ESCAPE_DEPTHS)
+    log(f"{label}: tx_s={time.perf_counter() - t0:.2f} (world state, notes, "
+        "signature, nullifier and root-tree paths)")
+
+    def build():
+        c = TurboComposer(device=device)
+        escape_hatch_circuit(c, tx)
+        return c
+
+    c = keyed_circuit(label, build, sync)
+    if len(c.public_inputs) != 9 + 4 + 1 + 12:
+        raise AssertionError(f"{label}: {len(c.public_inputs)} public "
+                             "inputs, not 26")
+    launches = prove(label, c, 1, sync, "keccak")[0]
+    bad_tx = mv.escape_hatch_tx("aztec_tpu_torch", fee=1)
+    bad = TurboComposer(device=device)
+    escape_hatch_circuit(bad, bad_tx)
+    if not (bad.failed or circuit_check.check_turbo(bad)):
+        raise AssertionError("escape hatch: a non-zero fee passed")
+    log(f"escape hatch: a fee of 1 fails its constraints ({bad.err})")
+    return launches
+
+
+# -- phase 5g: MiMC and the elliptic widget ---------------------------------
+
+def mimc_path(device: str = "cuda", log2n: int = MIMC_LOG2N) -> None:
+    """Phase 5g: MiMC7 hashes in MiMC gates on a ``MiMCComposer`` up to
+    2^log2n gates, the last output public and equal to the native hash,
+    checked by ``check_mimc``, keyed, and proved twice (Keccak), each
+    verified, a tamper rejected."""
+    import random as _random
+
+    import torch
+
+    from aztec_tpu_torch.ff.bn254 import FR_MOD
+    from aztec_tpu_torch.plonk import circuit_check
+    from aztec_tpu_torch.plonk.composer import MiMCComposer
+    from aztec_tpu_torch.stdlib.field_t import FieldT
+    from aztec_tpu_torch.stdlib.mimc_circuit import mimc7, mimc7_native
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    label = f"mimc 2^{log2n}"
+    rng = _random.Random(SEED + 11)
+    t0 = time.perf_counter()
+    c = MiMCComposer(device=device)
+    c.create_dummy_gates()
+    hashes = 0
+    while not hashes or c.n < (1 << log2n) - 1024:
+        vals = [rng.randrange(FR_MOD) for _ in range(8)]
+        out = mimc7(c, [FieldT.from_witness(c, v) for v in vals])
+        hashes += 1
+    out.set_public()
+    build = time.perf_counter() - t0
+    if out.get_value() != mimc7_native(vals):
+        raise AssertionError(f"{label}: the hash differs from the native one")
+    t0 = time.perf_counter()
+    bad = circuit_check.check_mimc(c)
+    check = time.perf_counter() - t0
+    if bad or c.failed or c.subgroup_size() != 1 << log2n:
+        raise AssertionError(f"{label}: {len(bad)} violated identities, "
+                             f"subgroup {c.subgroup_size()}")
+    t0 = time.perf_counter()
+    c.compute_proving_key()
+    sync()
+    key = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c.compute_verification_key()
+    vk = time.perf_counter() - t0
+    log(f"{label}: {hashes} MiMC7 hashes of 8 inputs, {c.n} gates, "
+        f"{sum(c.q_mimc_selector)} MiMC gates, check_mimc clean; build_s="
+        f"{build:.2f} check_s={check:.2f} key_s={key:.2f} vk_s={vk:.2f}")
+    prove(label, c, 2, sync, "keccak")
+
+
+def elliptic_check(rows: int = ELLIPTIC_ROWS) -> None:
+    """Phase 5g: ``kernels.elliptic_identity`` over ``rows`` rows of seeded
+    wires and selectors on the card (every field op a K1 launch) against
+    its result on the CPU (the plain versions), bit for bit."""
+    import torch
+
+    from aztec_tpu_torch.plonk import kernels
+
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 12)
+    w = [random_field(gen, (rows,), "cpu") for _ in range(4)]
+    q = [random_field(gen, (rows,), "cpu") for _ in range(4)]
+    alphas = [random_field(gen, (1,), "cpu") for _ in range(2)]
+    card = [x.cuda() for x in w + q + alphas]
+    got = kernels.elliptic_identity(card[:4], *card[4:])
+    torch.cuda.synchronize()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    try:
+        want = kernels.elliptic_identity(w, *q, *alphas)
+    finally:
+        torch.set_num_threads(threads)
+    err = max_abs_err(got.cpu(), want)
+    log(f"elliptic identity: {rows} rows on the card against the CPU's "
+        f"plain versions, max_abs_err={err}")
+    if err:
+        raise AssertionError("elliptic_identity differs from its CPU result")
+
+
 def http_path(env: dict, verifier) -> None:
     """The port's HTTP server in this process, over its own worker child:
     GET /status, then POST /create-proof of a WORKER_GATES-gate Turbo demo
@@ -2832,6 +3259,8 @@ def run(argv=()) -> int:
     quarters_only = "--quarters" in argv
     tower_only = "--tower" in argv
     warm_only = "--warm-proofs" in argv
+    ultra_only = "--ultra" in argv
+    ultra_recursion_only = "--ultra-recursion" in argv
     try:
         import torch
     except ImportError:
@@ -2873,6 +3302,19 @@ def run(argv=()) -> int:
             fk.LAUNCHES.clear()
             log("path rollup_tower launches: "
                 + json.dumps(tower_path(), sort_keys=True))
+        log(card)
+        return 0
+    if ultra_only or ultra_recursion_only:
+        if ultra_only:
+            record = ultra_phase()
+        if ultra_recursion_only:
+            ultra_recursion()
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "aztec_tpu")]
+        if leaked:
+            raise AssertionError(f"the smoke imported {leaked[:5]}")
+        if ultra_only:
+            log(json.dumps({"ultra_phase": record}))
         log(card)
         return 0
 
@@ -2952,6 +3394,17 @@ def run(argv=()) -> int:
     missing = [k for k in turbo_kernels if not paths["rollup_tower"].get(k)]
     if missing:
         raise AssertionError(f"path rollup_tower never launched {missing}")
+    # phase 5e runs in a process of its own, which counts its launches
+    ultra = ultra_fresh()
+    paths.update(ultra["paths"])
+    for name in ultra["paths"]:
+        missing = [k for k in turbo_kernels if not paths[name].get(k)]
+        if missing:
+            raise AssertionError(f"path {name} never launched {missing}")
+    escape_launches = path("proof_escape_hatch_prod", turbo_kernels,
+                           escape_hatch_path)
+    path("proof_mimc_2pow17", turbo_kernels, mimc_path)
+    elliptic_check()
     path("msm_engine_2pow20", ["rake_scan_packed", "bucket_phase"],
          check_engine, case)
     del case
@@ -2980,6 +3433,8 @@ def run(argv=()) -> int:
                 flavor: counts.get(name, 0)
                 for flavor, counts in turbo_launches.items()},
             "launches_per_join_split_proof": join_split_launches.get(name, 0),
+            "launches_per_ultra_2pow20_proof": ultra["per_proof"].get(name, 0),
+            "launches_per_escape_hatch_proof": escape_launches.get(name, 0),
         })
         floor = redesigned["times"].get("chain_floor_ms", {}).get(name)
         if floor is not None:

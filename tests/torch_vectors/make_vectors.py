@@ -33,6 +33,23 @@ circuits of ``CARD_ONLY`` may carry.
 ``tests/test_torch_plonk.py`` and ``tests/test_torch_turbo.py`` hold the
 port (``aztec_tpu_torch``) to these bytes without compiling the JAX prover.
 
+The UltraPlonk and MiMC vectors: ``ultra_drive`` (an UltraPlonk circuit
+in the manner of tests/test_ultra.py: a range and an AND table, lookups,
+subgroup 32; its key planes with the tables' and ``q_lookup`` /
+``q_index``'s lagrange forms), the same circuit proved unrolled
+(``unrolled_ultra_drive``), and
+``mimc_drive`` (tests/test_mimc.py's prove-verify circuit on the
+``MiMCComposer``, subgroup 128); and ``ultra_quotient.npz``: the
+reference's ``lookup_grand_product`` and ``ultra_quotient`` at n = 16,
+``mimc_quotient`` and ``elliptic_identity`` on the seeded planes of
+``ultra_inputs``.  The card writes ``ultra_2pow20`` (aztec_tpu_torch/tools/
+ultra_circuit.py's 2^20-gate circuit, Keccak) and ``escape_hatch_prod``
+(the escape hatch at the production tree depths, Keccak Turbo), each with
+its whole VK as JSON (``vk_json``); tests/test_torch_ultra.py and
+tests/test_torch_escape_hatch.py hold them to aztec_tpu's verifiers:
+
+    python tests/torch_vectors/make_vectors.py --card ultra_2pow20 escape_hatch_prod
+
 Also ``turbo_quotient.npz``: the reference's ``kernels.turbo_quotient`` at
 n = 16 (4n = 64 lanes) on the seeded inputs of ``quotient_inputs``, which
 the test rebuilds from the seed.
@@ -186,6 +203,63 @@ def join_split_d3_tx(package: str):
     return tx
 
 
+ESCAPE_PRIV = JOIN_SPLIT_PRIV
+
+
+def escape_hatch_tx(package: str, data_depth: int = 3, null_depth: int = 16,
+                    root_depth: int = 3, fee: int = 0):
+    """The escape-hatch tx of tests/test_escape_hatch.py (two input notes
+    of 100 and 50, outputs of 90 and 60 - ``fee``) over a ``WorldState`` of
+    the given depths, built with the modules of ``package``; the
+    production depths are rollup/constants.py's (32, 256, 28)."""
+    mod = lambda name: importlib.import_module(f"{package}.{name}")  # noqa: E731
+    nn = mod("rollup.notes_native")
+    js = mod("rollup.join_split")
+    eh = mod("rollup.escape_hatch")
+    pub = mod("crypto.pedersen").fixed_base_scalar_mul_g1(ESCAPE_PRIV, 254)
+    ws = mod("rollup.world_state").WorldState(
+        data_depth=data_depth, null_depth=null_depth, root_depth=root_depth)
+    in1 = nn.ValueNote(100, 1, 0, pub, 0xAAAA1)
+    in2 = nn.ValueNote(50, 1, 0, pub, 0xAAAA2)
+    out1 = nn.ValueNote(90, 1, 0, pub, 0xBBBB1)
+    out2 = nn.ValueNote(60 - fee, 1, 0, pub, 0xBBBB2)
+    enc_in = [nn.encrypt_note(in1), nn.encrypt_note(in2)]
+    ws.insert_note(0, enc_in[0])
+    ws.insert_note(1, enc_in[1])
+    tx = js.JoinSplitTx(
+        public_input=0, public_output=0, asset_id=1, num_input_notes=2,
+        input_index=(0, 1), input_note=(in1, in2), output_note=(out1, out2),
+        signing_pub_key=pub, signature=(bytes(32), bytes(32)),
+        old_data_root=ws.data_root(),
+        input_path=(ws.data_tree.get_hash_path(0),
+                    ws.data_tree.get_hash_path(1)),
+        account_index=2, account_path=ws.data_tree.get_hash_path(2),
+        input_owner=0xAA, output_owner=0xBB,
+        account_private_key=ESCAPE_PRIV, alias_hash=0, nonce=0)
+    tx.signature = js.sign_tx(tx, ESCAPE_PRIV, k=0x777)
+
+    old_null_root = ws.null_tree.root
+    new_null = [ws.insert_nullifier(nn.compute_nullifier(enc, i, ESCAPE_PRIV,
+                                                         True))
+                for i, enc in enumerate(enc_in)]
+    data_start_index = 2
+    old_data_path = ws.data_tree.get_hash_path(data_start_index)
+    ws.insert_note(2, nn.encrypt_note(out1))
+    ws.insert_note(3, nn.encrypt_note(out2))
+    new_data_root = ws.data_root()
+    old_roots_root = ws.root_tree.root
+    old_roots_path = ws.root_tree.get_hash_path(1)
+    new_roots_root, _ = ws.insert_data_root(0, new_data_root)
+    return eh.EscapeHatchTx(
+        js_tx=tx, rollup_id=0, data_start_index=data_start_index,
+        new_data_root=new_data_root, old_data_path=old_data_path,
+        new_null_roots=tuple(r for r, _ in new_null),
+        old_null_paths=tuple(p for _, p in new_null),
+        old_null_root=old_null_root, old_data_roots_root=old_roots_root,
+        new_data_roots_root=new_roots_root,
+        old_data_roots_path=old_roots_path)
+
+
 def build_join_split_d3(mod):
     """The join-split circuit of ``join_split_d3_tx`` on ``mod``'s
     composer (subgroup 2^16)."""
@@ -194,6 +268,59 @@ def build_join_split_d3(mod):
     js.join_split_circuit(c, join_split_d3_tx(mod.package))
     assert not c.failed, c.err
     return c
+
+
+def build_ultra_drive(mod):
+    """An UltraPlonk circuit in the manner of tests/test_ultra.py (subgroup
+    32): a range and an AND table, a raw lookup gate on a public input, a
+    table read, a range decomposition by lookups, arithmetic over the
+    looked-up values."""
+    lt = mod.lookup_tables
+    c = mod.UltraComposer()
+    c.add_lookup_table(lt.range_table(3, index=1))
+    c.add_lookup_table(lt.and_table(2, index=3))
+    x = c.add_public_variable(5)
+    c.create_lookup_gate(x, c.zero_idx, c.zero_idx, 1)
+    out = c.read_from_table(3, c.add_variable(3), c.add_variable(2))
+    v = c.add_variable(46)
+    c.create_range_constraint_via_lookup(v, 1, 2, 3)
+    s = c.add_variable(51)
+    c.create_add_gate(mod.AddTriple(x, v, s, 1, 1, -1, 0))
+    p = c.add_variable(102)
+    c.create_mul_gate(mod.MulTriple(out, s, p, 1, -1, 0))
+    assert not c.failed, c.err
+    assert c.subgroup_size() == 32
+    return c
+
+
+def build_mimc_drive(mod):
+    """The circuit of tests/test_mimc.py's prove-verify test: MiMC7 of one
+    input in MiMC gates, its output public (subgroup 128)."""
+    c = mod.MiMCComposer()
+    c.create_dummy_gates()
+    x = mod.field_t.FieldT.from_witness(c, 41)
+    mod.mimc_circuit.mimc7(c, [x], use_mimc_gates=True).set_public()
+    assert not c.failed, c.err
+    return c
+
+
+def build_escape_hatch_prod(mod):
+    """The escape-hatch circuit at the production tree depths, on
+    ``mod``'s TurboComposer (Keccak Turbo: the circuit is verified on
+    chain directly)."""
+    c = mod.TurboComposer()
+    eh = importlib.import_module(f"{mod.package}.rollup.escape_hatch")
+    eh.escape_hatch_circuit(c, escape_hatch_tx(mod.package, 32, 256, 28))
+    assert not c.failed, c.err
+    return c
+
+
+def build_ultra_2pow20(mod):
+    """aztec_tpu_torch/tools/ultra_circuit.py's circuit at 2^20 gates."""
+    from aztec_tpu_torch.tools import ultra_circuit
+
+    return ultra_circuit.build(mod.UltraComposer, mod.lookup_tables,
+                               mod.MulTriple, mod.AddTriple, log2n=20)
 
 
 # name: (the circuit, built from a namespace of a package's classes; its
@@ -205,14 +332,20 @@ CIRCUITS = {
     "unrolled_turbo_drive": (build_turbo_drive, 9),
     "turbo_pedersen": (build_turbo_pedersen, 10),
     "join_split_d3": (build_join_split_d3, 11),
+    "ultra_drive": (build_ultra_drive, 14),
+    "unrolled_ultra_drive": (build_ultra_drive, 14),
+    "mimc_drive": (build_mimc_drive, 15),
+    "ultra_2pow20": (build_ultra_2pow20, 18),
+    "escape_hatch_prod": (build_escape_hatch_prod, 19),
 }
 # proved with create_unrolled_prover (and verified by the unrolled verifier)
-UNROLLED = ("unrolled_turbo_drive", "join_split_d3")
+UNROLLED = ("unrolled_turbo_drive", "join_split_d3", "unrolled_ultra_drive")
 # the circuits whose proving-key planes are written (the rest: bytes only)
-PLANES = ("standard_drive1", "standard_chain8", "turbo_drive")
+PLANES = ("standard_drive1", "standard_chain8", "turbo_drive", "ultra_drive")
 # the circuits whose committed record may be the port's own proof on the
 # card (``--card``); every other record is aztec_tpu's
-CARD_ONLY = ("join_split_d3", "rollup_tower")
+CARD_ONLY = ("join_split_d3", "rollup_tower", "ultra_2pow20",
+             "escape_hatch_prod")
 REFERENCE, CARD = "aztec_tpu", "aztec_tpu_torch/card"
 TOWER_SEEDS = (12, 13)  # counter rngs of the inner and the root rollup proof
 
@@ -360,13 +493,9 @@ QUOTIENT_N = 16
 QUOTIENT_SEED = 16
 
 
-def quotient_inputs(n: int = QUOTIENT_N, seed: int = QUOTIENT_SEED) -> dict:
-    """Seeded inputs of ``turbo_quotient`` at subgroup size n: uint32
-    Montgomery planes of uniform Fr elements (every selector random, so
-    non-zero), wires and sigmas (16, 4, 4n), selectors (16, 11, 4n),
-    alphas (16, 21) drawn independently, so that a misplaced power shows."""
-    rng = np.random.default_rng(seed)
-
+def _field_draws(rng):
+    """field(*shape): uint32 (16, *shape) Montgomery-agnostic planes of
+    uniform Fr elements drawn from ``rng``."""
     def field(*shape):
         words = rng.integers(0, 1 << 63, (4,) + shape, dtype=np.int64)
         vals = np.empty(shape, dtype=object)
@@ -378,7 +507,15 @@ def quotient_inputs(n: int = QUOTIENT_N, seed: int = QUOTIENT_SEED) -> dict:
             for i in range(16):
                 out[(i,) + idx] = (vals[idx] >> (16 * i)) & 0xFFFF
         return out
+    return field
 
+
+def quotient_inputs(n: int = QUOTIENT_N, seed: int = QUOTIENT_SEED) -> dict:
+    """Seeded inputs of ``turbo_quotient`` at subgroup size n: uint32
+    Montgomery planes of uniform Fr elements (every selector random, so
+    non-zero), wires and sigmas (16, 4, 4n), selectors (16, 11, 4n),
+    alphas (16, 21) drawn independently, so that a misplaced power shows."""
+    field = _field_draws(np.random.default_rng(seed))
     m = 4 * n
     return {"wffts": field(4, m), "sffts": field(4, m), "zfft": field(m),
             "qffts": field(11, m), "l1fft": field(m), "coset_pts": field(m),
@@ -401,6 +538,81 @@ def quotient_vectors() -> None:
     np.savez_compressed(os.path.join(HERE, "turbo_quotient.npz"),
                         out=np.asarray(out).astype(np.uint16))
     print("turbo_quotient: written", flush=True)
+
+ULTRA_SEED = 17
+
+
+def ultra_inputs(n: int = QUOTIENT_N, seed: int = ULTRA_SEED) -> dict:
+    """Seeded inputs of the lookup grand product (n lanes), the Ultra and
+    MiMC quotients (4n lanes) and the elliptic identity (n rows): uniform
+    Fr planes, every selector random and every power of alpha drawn on its
+    own, so that a misplaced term shows."""
+    field = _field_draws(np.random.default_rng(seed))
+    m = 4 * n
+    return {
+        # lookup_grand_product
+        "wires": field(3, n), "q_lookup": field(n), "q_index": field(n),
+        "tables": field(4, n), "h1": field(n), "h2": field(n),
+        "randoms": field(3),
+        # ultra_quotient
+        "wffts": field(4, m), "sffts": field(4, m), "zfft": field(m),
+        "qffts": field(11, m), "tffts": field(4, m), "qlfft": field(m),
+        "qifft": field(m), "s1fft": field(m), "s2fft": field(m),
+        "zlfft": field(m), "l1fft": field(m), "coset_pts": field(m),
+        "vanish_scale": field(m), "alphas": field(24), "eta": field(1),
+        "beta": field(1), "gamma": field(1), "delta": field(1),
+        # mimc_quotient (its wires, sigmas and selectors the first 3 / 7)
+        "alpha": field(1),
+        # elliptic_identity
+        "ell_w": field(4, n), "ell_q": field(4, n), "alpha2": field(1),
+    }
+
+
+LOOKUP_Z_ARGS = ("wires", "q_lookup", "q_index", "tables", "h1", "h2",
+                 "eta", "beta", "gamma", "randoms")
+ULTRA_ARGS = ("wffts", "sffts", "zfft", "qffts", "tffts", "qlfft", "qifft",
+              "s1fft", "s2fft", "zlfft", "l1fft", "coset_pts",
+              "vanish_scale", "alphas", "eta", "beta", "gamma", "delta")
+
+
+def mimc_args(ins: dict) -> tuple:
+    """``mimc_quotient``'s arguments from ``ultra_inputs``."""
+    return (ins["wffts"][:, :3], ins["sffts"][:, :3], ins["zfft"],
+            ins["qffts"][:, :7], ins["l1fft"], ins["coset_pts"],
+            ins["vanish_scale"], ins["alpha"], ins["beta"], ins["gamma"],
+            ins["delta"])
+
+
+def elliptic_args(ins: dict) -> tuple:
+    """``elliptic_identity``'s arguments from ``ultra_inputs``."""
+    q = ins["ell_q"]
+    return (ins["ell_w"], q[:, 0], q[:, 1], q[:, 2], q[:, 3], ins["alpha"],
+            ins["alpha2"])
+
+
+def ultra_quotient_vectors() -> None:
+    """``ultra_quotient.npz``: the reference's ``lookup_grand_product``,
+    ``ultra_quotient``, ``mimc_quotient`` and ``elliptic_identity`` on
+    ``ultra_inputs``."""
+    import jax.numpy as jnp
+
+    from aztec_tpu.plonk import kernels
+
+    ins = ultra_inputs()
+    j = lambda xs: [jnp.asarray(x) for x in xs]  # noqa: E731
+    out = {
+        "lookup_z": kernels.lookup_grand_product(
+            *j(ins[k] for k in LOOKUP_Z_ARGS), QUOTIENT_N),
+        "ultra": kernels.ultra_quotient(*j(ins[k] for k in ULTRA_ARGS),
+                                        QUOTIENT_N),
+        "mimc": kernels.mimc_quotient(*j(mimc_args(ins)), QUOTIENT_N),
+        "elliptic": kernels.elliptic_identity(*j(elliptic_args(ins))),
+    }
+    np.savez_compressed(os.path.join(HERE, "ultra_quotient.npz"),
+                        **{k: np.asarray(v).astype(np.uint16)
+                           for k, v in out.items()})
+    print("ultra_quotient: written", flush=True)
+
 
 POW_LANES = 16
 POW_SEED = 7
@@ -483,8 +695,16 @@ def card_vectors(names) -> None:
         proof = prover.construct_proof()
         if not make_verifier(c, name).verify_proof(proof):
             raise AssertionError(f"{name}: the port rejects its proof")
+        rec = record(name, c, prover, proof, CARD)
+        if name in ("ultra_2pow20", "escape_hatch_prod"):
+            # the whole VK (its settings, domain root and G2 point), so
+            # that aztec_tpu's vk_from_json rebuilds it
+            from aztec_tpu_torch.utils.fixtures import vk_to_json
+
+            rec.update(gates=c.n, vk_json=vk_to_json(
+                c.compute_verification_key()))
         with open(os.path.join(HERE, f"{name}.json"), "w") as f:
-            json.dump(record(name, c, prover, proof, CARD), f, indent=1)
+            json.dump(rec, f, indent=1)
         print(f"{name}: proved on the card, n={c.subgroup_size()} "
               f"proof={len(proof)} bytes, verified", flush=True)
 
@@ -501,11 +721,16 @@ def main() -> None:
 
     setup_compile_cache()
     from aztec_tpu.plonk import composer as comp
-    from aztec_tpu.stdlib import pedersen_circuit
+    from aztec_tpu.plonk import lookup_tables
+    from aztec_tpu.stdlib import field_t, mimc_circuit, pedersen_circuit
 
     mod = SimpleNamespace(package="aztec_tpu",
                           StandardComposer=comp.StandardComposer,
                           TurboComposer=comp.TurboComposer,
+                          UltraComposer=comp.UltraComposer,
+                          MiMCComposer=comp.MiMCComposer,
+                          lookup_tables=lookup_tables, field_t=field_t,
+                          mimc_circuit=mimc_circuit,
                           pedersen=pedersen_circuit,
                           MulTriple=comp.MulTriple, AddTriple=comp.AddTriple)
     only = set(args)
@@ -513,10 +738,12 @@ def main() -> None:
         pow_vectors()
     if not only or "turbo_quotient" in only:
         quotient_vectors()
+    if not only or "ultra_quotient" in only:
+        ultra_quotient_vectors()
     if not only or "recursive_vk" in only:
         recursive_vk_vector()
     for name, (build, seed) in CIRCUITS.items():
-        if only and name not in only:
+        if name not in only and (only or name in CARD_ONLY):
             continue
         c = build(mod)
         prover = make_prover(c, name)
@@ -527,6 +754,8 @@ def main() -> None:
             planes = {}
             for s, store in pk.selectors.items():
                 planes[f"{s}_monomial"] = np.asarray(store.monomial)
+                if store.lagrange is not None:  # Ultra's tables, q_lookup
+                    planes[f"{s}_lagrange"] = np.asarray(store.lagrange)
             for s, store in pk.sigmas.items():
                 planes[f"{s}_monomial"] = np.asarray(store.monomial)
                 planes[f"{s}_lagrange"] = np.asarray(store.lagrange)

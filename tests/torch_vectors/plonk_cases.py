@@ -3,7 +3,8 @@ the JAX package (aztec_tpu) produced with make_vectors.py (and
 ``join_split_d3``, which the port proved on the card: make_vectors.py
 ``CARD_ONLY``).  Shared by tests/test_torch_plonk.py,
 tests/test_torch_plonk_chain.py, tests/test_torch_turbo.py,
-tests/test_torch_rollup.py and chip_smoke.py."""
+tests/test_torch_rollup.py, tests/test_torch_ultra.py,
+tests/test_torch_mimc.py and chip_smoke.py."""
 
 from __future__ import annotations
 
@@ -38,23 +39,30 @@ def load_vector(name: str):
 
 # vectors of one circuit proved two ways: the port proves them on one
 # composer (one key, one VK)
-SAME_CIRCUIT = {"unrolled_turbo_drive": "turbo_drive"}
+SAME_CIRCUIT = {"unrolled_turbo_drive": "turbo_drive",
+                "unrolled_ultra_drive": "ultra_drive"}
 # aztec_tpu's flavor (plonk.flavors.FLAVORS) of each vector's proof
 FLAVOR = {"turbo_drive": "turbo", "unrolled_turbo_drive": "unrolled_turbo",
-          "turbo_pedersen": "turbo", "join_split_d3": "unrolled_turbo"}
+          "turbo_pedersen": "turbo", "join_split_d3": "unrolled_turbo",
+          "ultra_drive": "ultra", "unrolled_ultra_drive": "unrolled_ultra",
+          "mimc_drive": "mimc"}
 
 
 def port_classes(device: str = "cpu") -> SimpleNamespace:
     """The port's classes, as make_vectors' circuit functions take them."""
     from aztec_tpu_torch.plonk import composer as comp
-    from aztec_tpu_torch.stdlib import pedersen_circuit
+    from aztec_tpu_torch.plonk import lookup_tables
+    from aztec_tpu_torch.stdlib import field_t, mimc_circuit, pedersen_circuit
 
     return SimpleNamespace(
         package="aztec_tpu_torch",
         StandardComposer=functools.partial(comp.StandardComposer,
                                            device=device),
         TurboComposer=functools.partial(comp.TurboComposer, device=device),
-        pedersen=pedersen_circuit,
+        UltraComposer=functools.partial(comp.UltraComposer, device=device),
+        MiMCComposer=functools.partial(comp.MiMCComposer, device=device),
+        lookup_tables=lookup_tables, field_t=field_t,
+        mimc_circuit=mimc_circuit, pedersen=pedersen_circuit,
         MulTriple=comp.MulTriple, AddTriple=comp.AddTriple)
 
 
@@ -86,12 +94,63 @@ def reference_verifier(vk, name: str = "standard_drive1"):
     from aztec_tpu.plonk.proving_key import VerificationKey
     from aztec_tpu.plonk.verifier import Verifier
 
-    flavor = FLAVORS[FLAVOR.get(name, "standard")]
+    from aztec_tpu.plonk.flavors import MimcFlavor
+
+    flavor = dict(FLAVORS, mimc=MimcFlavor)[FLAVOR.get(name, "standard")]
     key = VerificationKey(n=vk.n, num_public_inputs=vk.num_public_inputs,
                           commitments=dict(vk.commitments),
                           domain_root=vk.domain_root, g2_x=vk.g2_x,
                           settings=flavor.settings)
     return Verifier(key, flavor)
+
+
+def reference_vk(rec):
+    """The VK of a reference record (``vk_ints``) with aztec_tpu's domain
+    root and dev-SRS G2 point, as ``reference_verifier`` takes it."""
+    from aztec_tpu.poly.domain import EvaluationDomain
+    from aztec_tpu.srs.reference_string import FakeReferenceStringFactory
+
+    return SimpleNamespace(
+        n=rec["n"], num_public_inputs=len(rec["public_inputs"]),
+        commitments=vk_ints(rec), domain_root=EvaluationDomain(rec["n"]).root,
+        g2_x=FakeReferenceStringFactory().get_verifier_srs().g2_x)
+
+
+@functools.lru_cache(maxsize=None)
+def ultra_planes():
+    """make_vectors.ultra_inputs as int32 tensors, and the reference's
+    outputs on them (ultra_quotient.npz) as int32 arrays."""
+    import torch
+
+    from make_vectors import ultra_inputs
+
+    ins = {k: torch.from_numpy(v.astype(np.int32))
+           for k, v in ultra_inputs().items()}
+    with np.load(os.path.join(HERE, "ultra_quotient.npz")) as d:
+        want = {k: d[k].astype(np.int32) for k in d.files}
+    return ins, want
+
+
+def stand_in_key(quarters: bool, pts, l1, vs, sigmas, selectors):
+    """A proving key over seeded 4n coset planes, for a flavor's
+    ``quotient_evals``: ``sigmas`` a list of planes, ``selectors`` planes
+    by name.  With ``quarters`` each polynomial's "monomial" is its 4n
+    plane and quarter j's ``evaluate`` takes its lanes 4k + j, so the
+    quarter plan reads the same lanes as the stored plan."""
+    import torch
+
+    def store(x):
+        return SimpleNamespace(fft=x, monomial=x)
+
+    def quarter(j):
+        take = lambda x: x[:, j::4].contiguous()  # noqa: E731
+        return take, take(pts), take(l1), take(vs)
+
+    return SimpleNamespace(
+        quarters=quarters, device=torch.device("cpu"), quarter=quarter,
+        l1_fft=l1, coset_pts=pts, vanish_scale=vs,
+        sigmas={f"sigma_{i}": store(x) for i, x in enumerate(sigmas, 1)},
+        selectors={k: store(x) for k, x in selectors.items()})
 
 
 def linear_generator_stream(pedersen):
