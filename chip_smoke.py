@@ -87,19 +87,30 @@ read just after:
     id failed and the worker exiting 0, each request's seconds; its imports
     (``-X importtime``) hold neither JAX nor the JAX package; then the HTTP
     server over its own worker: GET /status and POST /create-proof;
-5d. the rollup tower through the proof worker, a subprocess with a fresh
-    fixture directory, as aztec_tpu_torch/tools/rollup_tower.py drives it
-    (one tx, ``WorldState(6, 16, 4)``): the join-split padding proof, id 0
-    (the inner rollup, 8.4M gates at 2^24, unrolled Turbo, its in-circuit
-    verifier over the padding proof), 0x202 (its VK, against which the
-    inner proof verifies here), id 1 (the root rollup, 8.8M gates at 2^24,
-    Turbo with the Keccak transcript); the root proof verified again here
-    against the VK the worker wrote, its recursive accumulator folded into
-    the pairing, and a tamper rejected; each circuit's gates, subgroup,
-    build, SRS, key, VK, witness and proof seconds, launches by kernel and
-    the worker's peak device memory; both proofs' sha256; the worker's
-    imports hold neither JAX nor the JAX package; the worker's launches
-    join the path counts;
+5d. the rollup tower as an operator runs it: a user's deposit (100, fee
+    10) built and proved on the card by the port's SDK
+    (``CoreSdk(prover="circuit")``, data-tree depth 6, the unrolled Turbo
+    join-split, 66,864 gates at 2^17), verified against the worker's
+    join-split VK and a
+    tamper rejected; the port's sequencer (``RollupPipeline``,
+    ``WorldState(6, 16, 4)``, one tx a rollup) served by its HTTP handler
+    admits it through ``/tx``, and its pipeline sends id 0 (the inner
+    rollup, 8.4M gates at 2^24, unrolled Turbo, its in-circuit verifier
+    over the SDK's proof), 0x202 (its VK, which the phase's adapter writes
+    into the id-1 frame) and id 1 (the root rollup, 8.8M gates at 2^24,
+    Turbo with the Keccak transcript) to the proof worker, a subprocess
+    with a fresh fixture directory; the chain (``LocalBlockchain``)
+    verifies the root proof with the port's verifier; a failed request, a
+    rejected rollup or a reset fails the phase at once; the user syncs the
+    settled block: the SDK's data root equals the world state's and the
+    root proof's, the balance is 90.  Then the inner proof verified
+    against the VK 0x202 answered, the root proof verified here again, its
+    recursive accumulator folded into the pairing, and a tamper rejected;
+    /status and the /metrics seconds; the SDK proof's seconds and
+    launches; each circuit's gates, subgroup, build, SRS, key, VK, witness
+    and proof seconds, launches by kernel and the worker's peak device
+    memory; the three proofs' sha256; the worker's imports hold neither JAX
+    nor the JAX package; the worker's launches join the path counts;
 5e. UltraPlonk, in a process of its own (``--ultra``): the committed small
     Ultra vectors (the JAX package's Keccak and unrolled proofs of
     make_vectors.py's ``ultra_drive``) proved byte for byte; then, as a
@@ -368,6 +379,8 @@ JOIN_SPLIT_WARM = 1
 WORKER_GATES = 1 << 10
 TOWER_TXS = 1          # the rollup tower's txs (tools/rollup_tower.py's)
 TOWER_TIMEOUT = 900    # seconds the tower's worker may take
+TOWER_DEPOSIT = 100    # the SDK's deposit into the tower, and its fee
+TOWER_FEE = 10
 WARM_REPS = 5          # warm proofs a case of ``--warm-proofs``
 # Phase 5e: tools/ultra_circuit.py's circuit at 2^20 gates (the tables and
 # lookup counts by subgroup size; 2^17's are smaller so that its tables fit)
@@ -2661,23 +2674,192 @@ def rollup_stats(err_path: str) -> list:
     return out
 
 
+class TowerAdapter:
+    """Phase 5d's ``ProofGenerator``: the ported sequencer's request frames
+    go to the phase's ``WorkerProcess``.  After each id 0 it asks 0x202 and
+    keeps the VK the worker answered; into each id-1 frame it writes that
+    VK in place of the pipeline's ``inner_vk_json`` (``"{}"`` by default,
+    which the port's worker cannot parse).  A failed request is recorded in
+    ``errors`` before it raises: the coordinator catches every exception
+    and replays on its next poll, and the phase stops at the first."""
+
+    def __init__(self, worker: WorkerProcess):
+        self.worker = worker
+        self.vk_json = None
+        self.proofs = {}
+        self.secs = {}
+        self.errors = []
+
+    def _request(self, frame: bytes, name: str) -> bytes:
+        try:
+            payload, ok, secs = self.worker.request(frame)
+        except Exception as e:
+            self.errors.append(f"{name}: {e!r}")
+            raise
+        if ok != 1 or not payload:
+            self.errors.append(f"{name}: the worker answered failed")
+            raise RuntimeError(f"{name}: the worker answered failed")
+        self.secs[name] = secs
+        return payload
+
+    def create_proof(self, frame: bytes) -> bytes:
+        import struct
+
+        proof_id = struct.unpack(">I", frame[:4])[0]
+        if proof_id == 1:
+            if self.vk_json is None:
+                self.errors.append("id 1 before any id 0")
+                raise RuntimeError("id 1 before any id 0")
+            vlen = struct.unpack(">I", frame[12:16])[0]
+            frame = (frame[:12] + struct.pack(">I", len(self.vk_json))
+                     + self.vk_json + frame[16 + vlen:])
+        proof = self._request(frame, hex(proof_id))
+        self.proofs[proof_id] = proof
+        if proof_id == 0:
+            self.vk_json = self._request(struct.pack(">I", 0x202), "0x202")
+        return proof
+
+    def reset(self) -> None:
+        pass
+
+
+def sequencer_tower(worker, tx_frame: bytes, verify_tx, verify_root,
+                    timeout: float = TOWER_TIMEOUT) -> dict:
+    """Phase 5d's sequencer: the port's ``RollupPipeline`` (one tx an inner
+    rollup, one inner proof a root rollup, ``WorldState(6, 16, 4)``) over a
+    ``TowerAdapter`` of ``worker``, its tx receiver verifying with
+    ``verify_tx`` and its ``LocalBlockchain`` with ``verify_root``, served
+    by ``sequencer.server.make_handler`` on a free local port while the
+    coordinator polls.  POSTs ``tx_frame`` to ``/tx`` (202) and ``/flush``,
+    then polls ``/rollups`` until the rollup is mined; a failed request, a
+    chain rejection or a coordinator reset fails the phase at once.  Returns
+    the adapter, the pipeline (stopped) and the operator's views: /tx's
+    answer, /rollups, /status, /metrics and the seconds."""
+    import http.client
+    import struct
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from aztec_tpu_torch.sequencer.blockchain import LocalBlockchain
+    from aztec_tpu_torch.sequencer.rollup_pipeline import (RollupPipeline,
+                                                           SequencerConfig)
+    from aztec_tpu_torch.sequencer.server import make_handler
+
+    adapter = TowerAdapter(worker)
+    rejected = []
+
+    def chain_verify(proof: bytes) -> bool:
+        ok = verify_root(proof)
+        if not ok:
+            rejected.append(len(proof))
+        return ok
+
+    pipeline = RollupPipeline(
+        SequencerConfig(num_inner_rollup_txs=TOWER_TXS,
+                        num_outer_rollup_proofs=1, data_tree_depth=6,
+                        null_tree_depth=16, root_tree_depth=4),
+        adapter, blockchain=LocalBlockchain(verify_proof=chain_verify),
+        verify_tx_proof=verify_tx)
+    coordinator = pipeline.coordinator
+    resets = []
+    reset = coordinator.reset
+
+    def watched_reset():
+        resets.append(time.perf_counter())   # the first: start()'s own
+        reset()
+
+    coordinator.reset = watched_reset
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(pipeline))
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+
+    def ask(method: str, path: str, body: bytes = None):
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          httpd.server_address[1],
+                                          timeout=60)
+        try:
+            conn.request(method, path, body=body)
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    out = {"adapter": adapter, "pipeline": pipeline}
+    pipeline.start()
+    try:
+        t0 = time.perf_counter()
+        code, body = ask("POST", "/tx", tx_frame)
+        if code != 202:
+            raise AssertionError(f"/tx answered {code}: {body!r}")
+        out["tx"] = json.loads(body)
+        out["tx_s"] = time.perf_counter() - t0
+        code, body = ask("POST", "/flush", b"")
+        if code != 200:
+            raise AssertionError(f"/flush answered {code}: {body!r}")
+        while True:
+            if adapter.errors or rejected or len(resets) > 1:
+                raise AssertionError(
+                    f"the pipeline failed: requests {adapter.errors}, "
+                    f"{len(rejected)} rollups the chain rejected, "
+                    f"{len(resets) - 1} resets")
+            code, body = ask("GET", "/rollups")
+            rollups = json.loads(body)
+            if code == 200 and rollups and rollups[0]["mined"] is not None:
+                break
+            if worker.proc.poll() is not None:
+                raise AssertionError(f"the worker exited "
+                                     f"{worker.proc.returncode}")
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"no rollup mined in {timeout} s")
+            time.sleep(1.0)
+        out["mined_s"] = time.perf_counter() - t0
+        out["rollups"] = rollups
+        code, body = ask("GET", "/status")
+        out["status"] = json.loads(body)
+        code, body = ask("GET", "/metrics")
+        out["metrics"] = body.decode()
+    except BaseException:
+        worker.proc.kill()   # a request in flight ends; stop() can join
+        raise
+    finally:
+        pipeline.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=10)
+    return out
+
+
+def _histogram_sum(text: str, name: str) -> float:
+    """A histogram's ``_sum`` in a Prometheus exposition."""
+    for line in text.splitlines():
+        if line.startswith(name + "_sum "):
+            return float(line.split()[1])
+    raise AssertionError(f"/metrics has no {name}_sum")
+
+
 def tower_path(device: str = "cuda") -> dict:
-    """Phase 5d: the rollup tower through the port's proof worker, a
-    subprocess under ``-X importtime`` with a fresh fixture directory, as
-    ``aztec_tpu_torch/tools/rollup_tower.py`` drives it
-    (``TOWER_TXS`` txs, ``WorldState(6, 16, 4)``): the join-split padding
-    proof (the worker's depth-6 circuit data, proved here), the ready
-    byte, id 0 over ``create_rollup_tx``'s frame (the inner rollup,
-    unrolled Turbo), 0x202 (its VK, against which the inner proof must
-    verify here), id 1 over ``create_root_rollup_tx``'s frame (the root
-    rollup, Turbo with the Keccak transcript); then, in this process, the
-    root proof verified again with the port's verifier against the VK the
-    worker wrote, its recursive accumulator recovered from the 16
-    public-input limbs and folded into the pairing, and a tampered root
-    rejected.  Prints each circuit's gates, subgroup, set-up and proof
-    seconds, launches by kernel and the worker's peak device memory, and
-    the proofs' sha256.  Returns the launches of this process and of the
-    worker's two requests by kernel."""
+    """Phase 5d: the rollup tower as an operator runs it.  A user's deposit
+    (``TOWER_DEPOSIT``, fee ``TOWER_FEE``) built and proved on the card by
+    the port's ``CoreSdk`` (``prover="circuit"``, data-tree depth 6, the
+    unrolled Turbo join-split, 2^17), verified against the worker's
+    join-split VK (``join_split_circuit_data(6)``, proved here into a fresh
+    fixture directory) and a tamper rejected; the port's sequencer
+    (``sequencer_tower``) admits it through ``/tx`` and its pipeline sends
+    id 0 (the inner rollup, unrolled Turbo at 2^24, its in-circuit verifier
+    over the SDK's proof), 0x202 and id 1 (the root rollup, Turbo with the
+    Keccak transcript at 2^24) to the port's proof worker, a subprocess
+    under ``-X importtime``; the chain (``LocalBlockchain``) verifies the
+    root proof with the port's verifier against the VK the worker wrote.
+    Then the user syncs: the SDK's data root equals the world state's, the
+    balance is the deposit less the fee, and the root proof publishes that
+    data root.  The inner proof verifies here against the VK 0x202
+    answered; the root proof verifies here again, its recursive
+    accumulator folded into the pairing, and a tampered root is rejected.
+    Prints /status, the /metrics seconds, the SDK proof's seconds and
+    launches, each circuit's gates, subgroup, set-up and proof seconds,
+    launches by kernel and the worker's peak device memory, and the
+    proofs' sha256.  Returns the launches of this process (the SDK's and
+    the padding proof) and of the worker's two requests by kernel."""
     import gc
     import hashlib
     import shutil
@@ -2690,11 +2872,7 @@ def tower_path(device: str = "cuda") -> dict:
     from aztec_tpu_torch.plonk.flavors import TurboFlavor, UnrolledTurboFlavor
     from aztec_tpu_torch.plonk.verifier import Verifier
     from aztec_tpu_torch.rollup.circuit_data import join_split_circuit_data
-    from aztec_tpu_torch.rollup.create_rollup import (create_rollup_tx,
-                                                      create_root_rollup_tx)
-    from aztec_tpu_torch.rollup.serialize import (write_rollup_tx,
-                                                  write_root_rollup_tx)
-    from aztec_tpu_torch.rollup.world_state import WorldState
+    from aztec_tpu_torch.sdk import CoreSdk
     from aztec_tpu_torch.utils import fixtures
 
     tmp = tempfile.mkdtemp(prefix="smoke_tower_")
@@ -2705,51 +2883,61 @@ def tower_path(device: str = "cuda") -> dict:
     secs = {}
     try:
         t0 = time.perf_counter()
-        cd = join_split_circuit_data(device=device)
+        cd = join_split_circuit_data(data_depth=6, device=device)
         secs["padding_proof"] = time.perf_counter() - t0
+        # the user's wallet: a deposit proved on the card
+        before = dict(fk.LAUNCHES)
+        t0 = time.perf_counter()
+        sdk = CoreSdk(data_tree_depth=6, prover="circuit", device=device,
+                      randbytes=random.Random(SEED).randbytes)
+        user = sdk.add_user(b"smoke user")
+        req = sdk.create_join_split(user, public_input=TOWER_DEPOSIT,
+                                    tx_fee=TOWER_FEE)
+        torch.cuda.synchronize()
+        secs["sdk_proof"] = time.perf_counter() - t0
+        sdk_launches = {k: v - before.get(k, 0)
+                        for k, v in fk.LAUNCHES.items()
+                        if v != before.get(k, 0)}
+        tx_verifier = Verifier(cd.vk, UnrolledTurboFlavor)
+        if not tx_verifier.verify_proof(req.proof_data):
+            raise AssertionError("the SDK's deposit proof does not verify "
+                                 "against the worker's join-split VK")
+        bad = bytearray(req.proof_data)
+        bad[len(bad) // 2] ^= 1
+        if tx_verifier.verify_proof(bytes(bad)):
+            raise AssertionError("a tampered deposit proof verified")
+        log(f"tower sdk: the deposit ({TOWER_DEPOSIT}, fee {TOWER_FEE}) "
+            f"proved on the card in {secs['sdk_proof']:.2f} s cold "
+            f"(circuit, key and proof; unrolled Turbo, data-tree depth 6), "
+            f"{sum(sdk_launches.values())} launches: "
+            + json.dumps(sdk_launches, sort_keys=True)
+            + f"; verified against the worker's join-split VK, a tamper "
+            f"rejected; sha256 "
+            f"{hashlib.sha256(req.proof_data).hexdigest()} "
+            f"({len(req.proof_data)} bytes)")
         # the worker's 2^24 keys need the card: this process's cached
-        # blocks (the padding proof's, the earlier phases') go back first
+        # blocks (the SDK's and padding proofs', earlier phases') go back
         gc.collect()
         torch.cuda.empty_cache()
-        ws = WorldState(data_depth=6, null_depth=16, root_depth=4)
-        rtx = create_rollup_tx(ws, rollup_id=0,
-                               tx_proofs=[cd.padding_proof] * TOWER_TXS,
-                               rollup_size=TOWER_TXS)
-        body = write_rollup_tx(rtx)
+
+        def verify_root(proof: bytes) -> bool:
+            """The chain's verifier: the port's Turbo verifier over the
+            root-rollup VK the worker wrote, loaded when it is called."""
+            with open(os.path.join(fixtures.fixture_dir(),
+                                   "root_rollup_vk.json")) as f:
+                vk = fixtures.vk_from_json(f.read())
+            return Verifier(vk, TurboFlavor).verify_proof(proof)
+
         worker = WorkerProcess(env, err_path, timeout=TOWER_TIMEOUT)
         try:
             t0 = time.perf_counter()
             if worker.proc.stdout.read(1) != b"\x01":
                 raise AssertionError("the worker sent no ready byte")
             secs["ready"] = time.perf_counter() - t0
-            inner, ok, secs["0x0"] = worker.request(
-                struct.pack(">II", 0, TOWER_TXS)
-                + struct.pack(">I", len(body)) + body)
-            if ok != 1 or not inner:
-                raise AssertionError("id 0: the tx rollup failed")
-            vk_json, ok, secs["0x202"] = worker.request(
-                struct.pack(">I", 0x202))
-            if ok != 1:
-                raise AssertionError("0x202 after id 0 failed")
-            inner_vk = fixtures.vk_from_json(vk_json.decode())
-            if (inner_vk.settings.name != "unrolled_turbo"
-                    or not inner_vk.contains_recursive_proof):
-                raise AssertionError(f"0x202: settings "
-                                     f"{inner_vk.settings.name}, recursive "
-                                     f"{inner_vk.contains_recursive_proof}")
-            if not Verifier(inner_vk, UnrolledTurboFlavor).verify_proof(inner):
-                raise AssertionError("the inner rollup proof does not verify "
-                                     "against the VK 0x202 answered")
-            root_tx = create_root_rollup_tx(ws, rollup_id=0,
-                                            rollup_proofs=[inner],
-                                            new_data_root=rtx.new_data_root)
-            rbody = write_root_rollup_tx(root_tx)
-            root, ok, secs["0x1"] = worker.request(
-                struct.pack(">III", 1, TOWER_TXS, 1)
-                + struct.pack(">I", len(vk_json)) + vk_json
-                + struct.pack(">I", len(rbody)) + rbody)
-            if ok != 1 or not root:
-                raise AssertionError("id 1: the root rollup failed")
+            run = sequencer_tower(
+                worker, struct.pack(">I", len(req.proof_data))
+                + req.proof_data + req.viewing_keys,
+                tx_verifier.verify_proof, verify_root)
             worker.proc.stdin.close()
             rc = worker.proc.wait(timeout=60)
             if rc != 0:
@@ -2772,6 +2960,47 @@ def tower_path(device: str = "cuda") -> dict:
             os.environ.pop("AZTEC_FIXTURES", None)
         else:
             os.environ["AZTEC_FIXTURES"] = saved
+    adapter, pipeline = run["adapter"], run["pipeline"]
+    secs.update(adapter.secs)
+    secs["tx_admitted"] = run["tx_s"]
+    secs["mined"] = run["mined_s"]
+    inner, root, vk_json = adapter.proofs[0], adapter.proofs[1], \
+        adapter.vk_json
+    log("tower sequencer /status: " + json.dumps(run["status"],
+                                                 sort_keys=True))
+    log("tower sequencer /metrics: " + json.dumps({
+        name: _histogram_sum(run["metrics"], metric) for name, metric in (
+            ("tx_rollup_seconds", "tx_rollup_duration_seconds"),
+            ("root_rollup_seconds", "root_rollup_duration_seconds"),
+            ("publish_seconds", "publish_duration_seconds"))}))
+    log(f"tower sequencer: /tx answered 202 {run['tx']['txId']}, "
+        f"/rollups {json.dumps(run['rollups'])}")
+    blocks = pipeline.blockchain.get_blocks(0)
+    if ([b.rollup_id for b in blocks] != [0]
+            or blocks[0].rollup_proof_data != root
+            or blocks[0].tx_datas != [req.proof_data]):
+        raise AssertionError("the chain does not hold the root proof over "
+                             "the SDK's deposit as rollup 0")
+    # the user syncs the settled block
+    sdk.sync(pipeline.blockchain)
+    ws_root = pipeline.world_state.data_root()
+    published = int.from_bytes(root[4 * 32:5 * 32], "big")
+    if sdk.data_tree.root != ws_root or published != ws_root:
+        raise AssertionError(f"data roots: the SDK's {sdk.data_tree.root:x}, "
+                             f"the world state's {ws_root:x}, the root "
+                             f"proof's {published:x}")
+    if user.balance() != TOWER_DEPOSIT - TOWER_FEE:
+        raise AssertionError(f"the user's balance is {user.balance()}")
+    log(f"tower sdk sync: data root {ws_root:#x} equals the world state's "
+        f"and the root proof's; balance {user.balance()}")
+    inner_vk = fixtures.vk_from_json(vk_json.decode())
+    if (inner_vk.settings.name != "unrolled_turbo"
+            or not inner_vk.contains_recursive_proof):
+        raise AssertionError(f"0x202: settings {inner_vk.settings.name}, "
+                             f"recursive {inner_vk.contains_recursive_proof}")
+    if not Verifier(inner_vk, UnrolledTurboFlavor).verify_proof(inner):
+        raise AssertionError("the inner rollup proof does not verify "
+                             "against the VK 0x202 answered")
     if not root_vk.contains_recursive_proof:
         raise AssertionError("the root rollup's VK carries no recursive "
                              "proof")

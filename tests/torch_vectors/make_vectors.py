@@ -75,6 +75,12 @@ compresses it in-circuit and checks its membership of a key set
 (``recursive_vk_circuit``); tests/test_torch_recursion.py holds the port
 to both (aztec_tpu's generators for the 123 inputs take minutes).
 
+Also ``stump_d256.json``: aztec_tpu's ``StumpTree`` at depth 256 after a
+few seeded nullifier updates (``stump_vector``): its roots and one hash
+path, which tests/test_torch_stump_tree.py holds the port to:
+
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_vectors/make_vectors.py stump_d256
+
 With ``--card`` the named circuits, all of ``CARD_ONLY``, are proved by
 the port (aztec_tpu_torch) on the card instead, in the same record format
 with the card as producer; no JAX is imported.  ``rollup_tower`` is the
@@ -479,6 +485,38 @@ def tower_vector() -> None:
         json.dump(out, f, indent=1)
 
 
+STUMP_SEED = 7
+STUMP_UPDATES = 3
+
+
+def stump_vector() -> None:
+    """``stump_d256.json``: aztec_tpu's ``StumpTree`` at depth 256 (the
+    production nullifier tree) after ``STUMP_UPDATES`` nullifiers of
+    ``random.Random(STUMP_SEED)`` (254 bits each, leaf value 1): the empty
+    root, the root after each update and the first nullifier's hash path.
+    tests/test_torch_stump_tree.py holds the port to them (aztec_tpu's
+    tree takes minutes at this depth)."""
+    import random
+
+    from aztec_tpu.merkle.sparse_tree import MemoryStore
+    from aztec_tpu.merkle.stump_tree import StumpTree
+
+    rng = random.Random(STUMP_SEED)
+    tree = StumpTree(MemoryStore(), 256)
+    out = {"producer": REFERENCE, "seed": STUMP_SEED, "empty": hex(tree.root),
+           "nullifiers": [], "roots": []}
+    for _ in range(STUMP_UPDATES):
+        n = rng.getrandbits(254)
+        tree.update_element(n, (1).to_bytes(64, "big"))
+        out["nullifiers"].append(hex(n))
+        out["roots"].append(hex(tree.root))
+    first = int(out["nullifiers"][0], 16)
+    out["path"] = [[hex(a), hex(b)] for a, b in tree.get_hash_path(first)]
+    with open(os.path.join(HERE, "stump_d256.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"stump_d256: written, {STUMP_UPDATES} updates", flush=True)
+
+
 def make_prover(c, name: str):
     return (c.create_unrolled_prover() if name in UNROLLED
             else c.create_prover())
@@ -742,6 +780,8 @@ def main() -> None:
         ultra_quotient_vectors()
     if not only or "recursive_vk" in only:
         recursive_vk_vector()
+    if not only or "stump_d256" in only:
+        stump_vector()
     for name, (build, seed) in CIRCUITS.items():
         if name not in only and (only or name in CARD_ONLY):
             continue
