@@ -99,11 +99,18 @@ read just after:
     over the SDK's proof), 0x202 (its VK, which the phase's adapter writes
     into the id-1 frame) and id 1 (the root rollup, 8.8M gates at 2^24,
     Turbo with the Keccak transcript) to the proof worker, a subprocess
-    with a fresh fixture directory; the chain (``LocalBlockchain``)
-    verifies the root proof with the port's verifier; a failed request, a
-    rejected rollup or a reset fails the phase at once; the user syncs the
-    settled block: the SDK's data root equals the world state's and the
-    root proof's, the balance is 90.  Then the inner proof verified
+    with a fresh fixture directory; the chain is the port's
+    ``contracts.RollupProcessor``, into which the user first escrows the
+    deposit, and whose verifier is the EVM bytecode that the port's
+    ``generate_verifier`` emits for the root VK, run in the port's EVM, and
+    the port's native Turbo verifier (which alone folds the recursion
+    output into the pairing): both must accept; a failed request, a
+    ``WithdrawError`` event, a disagreement of the two verifiers or a reset
+    fails the phase at once; the processor's next id is 1, its roots are
+    the root proof's and the world state's, the escrow is spent and the
+    fees are 10 (the bytecode's length, gas and seconds printed); the user
+    syncs the settled block from the processor: the SDK's data root equals
+    the world state's and the root proof's, the balance is 90.  Then the inner proof verified
     against the VK 0x202 answered, the root proof verified here again, its
     recursive accumulator folded into the pairing, and a tamper rejected;
     /status and the /metrics seconds; the SDK proof's seconds and
@@ -132,6 +139,18 @@ read just after:
     ``check_mimc`` clean, keyed, proved twice and verified, a tamper
     rejected; then, outside the path, ``elliptic_identity`` over 2^16 rows
     on the card against its result on the CPU (the plain versions);
+5h. from a Noir program to the contract (``--noir`` alone): the port's
+    Noir compiler compiles aztec_tpu_torch/tools/noir_sha256.py's SHA-256
+    program over a 1,000-byte seeded message (16 blocks, about 455,000
+    gates, 2^19) onto a ``TurboComposer``; its eight digest words are
+    public and equal hashlib's; ``check_turbo`` clean, keyed, proved cold
+    and warm (Keccak), each verified natively, a tamper rejected; the
+    proof accepted by the bytecode of the port's ``generate_verifier`` in
+    the port's EVM and by the native verifier, three one-bit mutations
+    (one in a digest word) refused by both; ``write_verifier_sources``
+    writes the five Solidity files; then a 247-byte message through
+    ``PackedByteArray`` and ``sha256_bytes`` (4 blocks, 2^17) proved once
+    and accepted by both verifiers;
 6. the MSM engine at full width: phase 3's MSM through
    ``msm(..., MSMConfig(c=16, block=64, bucket_block=64, glv=True))`` (the
    packed branch: K3 and K4 once a round) and through the staged rounds,
@@ -156,8 +175,8 @@ read just after:
     2^17 proof less the bound of the elements it ran over; each kernel's
     launches over the paths times its device ms less its bound), a JSON
     line with every kernel's launches summed over the paths, times, bound
-    and launches in a warm join-split, 2^20 Ultra and escape-hatch proof,
-    then the card's name and power
+    and launches in a warm join-split, 2^20 Ultra, escape-hatch and 2^19
+    Noir SHA-256 proof, then the card's name and power
     limit, then the result line.
 
 Exits 2 without a result when CUDA is missing or the package is not beside
@@ -172,7 +191,8 @@ and the ranking, and last the lazy kernels on unreduced lanes (so an older
 commit prints its times before its kernels fail that check).  Copied beside an older checkout's package, it measures that
 commit's kernels with the same script, on the same card.
 
-``python3 chip_smoke.py --tower`` runs phase 5d alone; ``--quarters`` the
+``python3 chip_smoke.py --tower`` runs phase 5d alone, ``--noir`` phase
+5h alone; ``--quarters`` the
 prover's two memory plans on the 2^17 Turbo circuit (keccak and unrolled)
 and the 2^20 chain circuit: keyed and proved under the counter rng with
 the key's 4n coset forms and by coset quarters, the same bytes, each
@@ -398,6 +418,11 @@ ULTRA_VECTORS = ("ultra_drive", "unrolled_ultra_drive")
 ESCAPE_DEPTHS = (32, 256, 28)
 MIMC_LOG2N = 17
 ELLIPTIC_ROWS = 1 << 16
+NOIR_MESSAGE_BYTES = 1000   # phase 5h's Noir SHA-256 message: 16 blocks
+NOIR_LOG2N = 19
+NOIR_STDLIB_BYTES = 247     # the stdlib path's message: 4 blocks
+NOIR_STDLIB_LOG2N = 17
+NOIR_MUTATIONS = 3          # one-bit mutations, the first in a digest word
 
 
 def log(msg: str) -> None:
@@ -2122,7 +2147,7 @@ def prove(label: str, c, proofs: int, sync, flavor: str = "unrolled"):
     ``create_unrolled_prover``), each verified by the matching port
     verifier, then a tamper of the last rejected; prints the cold and warm
     seconds and returns the launches of the last proof by kernel and the
-    seconds of each proof."""
+    seconds of each proof, and the last proof."""
     from aztec_tpu_torch.ff import field_kernels as fk
 
     make_prover, verifier = (
@@ -2151,7 +2176,7 @@ def prove(label: str, c, proofs: int, sync, flavor: str = "unrolled"):
         f"{json.dumps([round(x, 4) for x in secs[1:]])}")
     log(f"{label} {flavor}: launches per proof {sum(launches.values())}: "
         f"{json.dumps(launches, sort_keys=True)}")
-    return launches, secs
+    return launches, secs, proof
 
 
 def turbo_path(log2n: int = 17, device: str = "cuda"):
@@ -2310,7 +2335,7 @@ def join_split_path(device: str = "cuda") -> dict:
     if public != join_split_public_inputs(tx):
         raise AssertionError(f"{label}: the public inputs differ from the "
                              "tx's native values")
-    launches, secs = prove(label, c, 1 + JOIN_SPLIT_WARM, sync)
+    launches, secs, _ = prove(label, c, 1 + JOIN_SPLIT_WARM, sync)
     if device == "cuda":
         busy_ms, by_name = profile_proof(c, c.create_unrolled_prover)
         warm_ms = sorted(secs[1:])[len(secs[1:]) // 2] * 1e3
@@ -2723,43 +2748,80 @@ class TowerAdapter:
         pass
 
 
-def sequencer_tower(worker, tx_frame: bytes, verify_tx, verify_root,
+class ContractVerifier:
+    """A chain's verifier over one VK: the bytecode that the port's
+    ``contracts.evm_verifier.generate_verifier`` emits for it, run in the
+    port's ``evm.EVM``, and the port's native verifier of ``flavor``.  A
+    proof is accepted when both accept it.  Each call appends to ``runs``
+    the EVM's verdict (True, False, or the revert or fault it raised), its
+    gas and seconds, and the native verdict and seconds.  The native
+    verifier alone
+    folds a recursion output (``vk.contains_recursive_proof``) into its
+    pairing: the bytecode, aztec_tpu's byte for byte, leaves it out."""
+
+    def __init__(self, vk, flavor):
+        from aztec_tpu_torch.contracts.evm_verifier import generate_verifier
+        from aztec_tpu_torch.plonk.verifier import Verifier
+
+        t0 = time.perf_counter()
+        self.code = generate_verifier(vk)
+        self.generate_s = time.perf_counter() - t0
+        self.native = Verifier(vk, flavor)
+        self.runs = []
+
+    def __call__(self, proof: bytes) -> bool:
+        from aztec_tpu_torch.evm.interpreter import EVM, EvmError, EvmRevert
+
+        evm = EVM()
+        t0 = time.perf_counter()
+        try:
+            verdict = int.from_bytes(evm.run(self.code, proof), "big") == 1
+        except (EvmRevert, EvmError) as e:
+            verdict = repr(e)[:80]
+        evm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native = self.native.verify_proof(proof)
+        run = {"evm": verdict, "gas": evm.gas_used, "evm_s": evm_s,
+               "native": native, "native_s": time.perf_counter() - t0}
+        self.runs.append(run)
+        return verdict is True and native
+
+    def summary(self) -> str:
+        return (f"bytecode {len(self.code)} bytes (generated in "
+                f"{self.generate_s:.3f} s); runs " + json.dumps(
+                    [{k: round(v, 3) if isinstance(v, float) else v
+                      for k, v in r.items()} for r in self.runs]))
+
+
+def sequencer_tower(worker, tx_frame: bytes, verify_tx, chain,
                     timeout: float = TOWER_TIMEOUT) -> dict:
     """Phase 5d's sequencer: the port's ``RollupPipeline`` (one tx an inner
     rollup, one inner proof a root rollup, ``WorldState(6, 16, 4)``) over a
     ``TowerAdapter`` of ``worker``, its tx receiver verifying with
-    ``verify_tx`` and its ``LocalBlockchain`` with ``verify_root``, served
-    by ``sequencer.server.make_handler`` on a free local port while the
-    coordinator polls.  POSTs ``tx_frame`` to ``/tx`` (202) and ``/flush``,
-    then polls ``/rollups`` until the rollup is mined; a failed request, a
-    chain rejection or a coordinator reset fails the phase at once.  Returns
-    the adapter, the pipeline (stopped) and the operator's views: /tx's
-    answer, /rollups, /status, /metrics and the seconds."""
+    ``verify_tx``, publishing into ``chain`` (the port's
+    ``contracts.RollupProcessor``), served by ``sequencer.server.
+    make_handler`` on a free local port while the coordinator polls.  POSTs
+    ``tx_frame`` to ``/tx`` (202) and ``/flush``, then polls ``/rollups``
+    until the rollup is mined; a failed request, a ``WithdrawError`` event
+    of the processor (a refused rollup: its verifier, its escrow or its
+    roots) or a coordinator reset fails the phase at once, the processor's
+    events printed.  Returns the adapter, the pipeline (stopped) and the
+    operator's views: /tx's answer, /rollups, /status, /metrics and the
+    seconds."""
     import http.client
-    import struct
     import threading
     from http.server import ThreadingHTTPServer
 
-    from aztec_tpu_torch.sequencer.blockchain import LocalBlockchain
     from aztec_tpu_torch.sequencer.rollup_pipeline import (RollupPipeline,
                                                            SequencerConfig)
     from aztec_tpu_torch.sequencer.server import make_handler
 
     adapter = TowerAdapter(worker)
-    rejected = []
-
-    def chain_verify(proof: bytes) -> bool:
-        ok = verify_root(proof)
-        if not ok:
-            rejected.append(len(proof))
-        return ok
-
     pipeline = RollupPipeline(
         SequencerConfig(num_inner_rollup_txs=TOWER_TXS,
                         num_outer_rollup_proofs=1, data_tree_depth=6,
                         null_tree_depth=16, root_tree_depth=4),
-        adapter, blockchain=LocalBlockchain(verify_proof=chain_verify),
-        verify_tx_proof=verify_tx)
+        adapter, blockchain=chain, verify_tx_proof=verify_tx)
     coordinator = pipeline.coordinator
     resets = []
     reset = coordinator.reset
@@ -2797,10 +2859,13 @@ def sequencer_tower(worker, tx_frame: bytes, verify_tx, verify_root,
         if code != 200:
             raise AssertionError(f"/flush answered {code}: {body!r}")
         while True:
-            if adapter.errors or rejected or len(resets) > 1:
+            refused = [e for e in chain.events if e[0] == "WithdrawError"]
+            if adapter.errors or refused or len(resets) > 1:
+                for event in chain.events:
+                    log(f"  tower chain event: {event}")
                 raise AssertionError(
                     f"the pipeline failed: requests {adapter.errors}, "
-                    f"{len(rejected)} rollups the chain rejected, "
+                    f"{len(refused)} rollups the chain refused, "
                     f"{len(resets) - 1} resets")
             code, body = ask("GET", "/rollups")
             rollups = json.loads(body)
@@ -2848,12 +2913,18 @@ def tower_path(device: str = "cuda") -> dict:
     id 0 (the inner rollup, unrolled Turbo at 2^24, its in-circuit verifier
     over the SDK's proof), 0x202 and id 1 (the root rollup, Turbo with the
     Keccak transcript at 2^24) to the port's proof worker, a subprocess
-    under ``-X importtime``; the chain (``LocalBlockchain``) verifies the
-    root proof with the port's verifier against the VK the worker wrote.
-    Then the user syncs: the SDK's data root equals the world state's, the
-    balance is the deposit less the fee, and the root proof publishes that
-    data root.  The inner proof verifies here against the VK 0x202
-    answered; the root proof verifies here again, its recursive
+    under ``-X importtime``; the chain is the port's ``RollupProcessor``,
+    into which the user first escrows the deposit for the ``INPUT_OWNER``
+    that the SDK's proof carries, and whose ``verify_proof`` is a
+    ``ContractVerifier`` of the VK the worker wrote: the bytecode of the
+    port's generator in the port's EVM and the port's native verifier, both
+    accepting.  The processor's next id is 1, its data, null and root roots
+    are the root proof's and the world state's, the escrow is spent, the
+    fees are the SDK's fee, and its events hold the processed rollup.
+    Then the user syncs from the processor: the SDK's data root equals the
+    world state's, the balance is the deposit less the fee, and the root
+    proof publishes that data root.  The inner proof verifies here against
+    the VK 0x202 answered; the root proof verifies here again, its recursive
     accumulator folded into the pairing, and a tampered root is rejected.
     Prints /status, the /metrics seconds, the SDK proof's seconds and
     launches, each circuit's gates, subgroup, set-up and proof seconds,
@@ -2868,10 +2939,12 @@ def tower_path(device: str = "cuda") -> dict:
 
     import torch
 
+    from aztec_tpu_torch.contracts import RollupProcessor, RollupProofData
     from aztec_tpu_torch.ff import field_kernels as fk
     from aztec_tpu_torch.plonk.flavors import TurboFlavor, UnrolledTurboFlavor
     from aztec_tpu_torch.plonk.verifier import Verifier
     from aztec_tpu_torch.rollup.circuit_data import join_split_circuit_data
+    from aztec_tpu_torch.rollup.inner_proof_data import InnerProofFields
     from aztec_tpu_torch.sdk import CoreSdk
     from aztec_tpu_torch.utils import fixtures
 
@@ -2920,13 +2993,24 @@ def tower_path(device: str = "cuda") -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
+        chain_verifiers = []
+
         def verify_root(proof: bytes) -> bool:
-            """The chain's verifier: the port's Turbo verifier over the
+            """The chain's verifier: a ``ContractVerifier`` (the generated
+            bytecode in the EVM, and the native Turbo verifier) of the
             root-rollup VK the worker wrote, loaded when it is called."""
             with open(os.path.join(fixtures.fixture_dir(),
                                    "root_rollup_vk.json")) as f:
                 vk = fixtures.vk_from_json(f.read())
-            return Verifier(vk, TurboFlavor).verify_proof(proof)
+            chain_verifiers.append(ContractVerifier(vk, TurboFlavor))
+            return chain_verifiers[-1](proof)
+
+        F = InnerProofFields
+        owner = format(int.from_bytes(
+            req.proof_data[F.INPUT_OWNER * 32:(F.INPUT_OWNER + 1) * 32],
+            "big"), "x")
+        processor = RollupProcessor(verify_proof=verify_root)
+        processor.deposit_pending_funds(0, TOWER_DEPOSIT, owner)
 
         worker = WorkerProcess(env, err_path, timeout=TOWER_TIMEOUT)
         try:
@@ -2937,7 +3021,7 @@ def tower_path(device: str = "cuda") -> dict:
             run = sequencer_tower(
                 worker, struct.pack(">I", len(req.proof_data))
                 + req.proof_data + req.viewing_keys,
-                tx_verifier.verify_proof, verify_root)
+                tx_verifier.verify_proof, processor)
             worker.proc.stdin.close()
             rc = worker.proc.wait(timeout=60)
             if rc != 0:
@@ -2949,6 +3033,8 @@ def tower_path(device: str = "cuda") -> dict:
                         if not line.startswith("import time:")][-40:]
             for line in tail:
                 log(f"  tower worker: {line}")
+            for contract in chain_verifiers:
+                log(f"  tower chain verifier: {contract.summary()}")
             raise
         finally:
             worker.close()
@@ -2975,20 +3061,50 @@ def tower_path(device: str = "cuda") -> dict:
             ("publish_seconds", "publish_duration_seconds"))}))
     log(f"tower sequencer: /tx answered 202 {run['tx']['txId']}, "
         f"/rollups {json.dumps(run['rollups'])}")
-    blocks = pipeline.blockchain.get_blocks(0)
+    blocks = processor.get_blocks(0)
     if ([b.rollup_id for b in blocks] != [0]
             or blocks[0].rollup_proof_data != root
             or blocks[0].tx_datas != [req.proof_data]):
         raise AssertionError("the chain does not hold the root proof over "
                              "the SDK's deposit as rollup 0")
-    # the user syncs the settled block
-    sdk.sync(pipeline.blockchain)
-    ws_root = pipeline.world_state.data_root()
-    published = int.from_bytes(root[4 * 32:5 * 32], "big")
-    if sdk.data_tree.root != ws_root or published != ws_root:
+    contract = chain_verifiers[-1]
+    ws = pipeline.world_state
+    published = RollupProofData(root)
+    roots = {"processor": (processor.data_root, processor.null_root,
+                           processor.root_root),
+             "root proof": (published.new_data_root,
+                            published.new_null_root,
+                            published.new_root_root),
+             "world state": (ws.data_root(), ws.null_tree.root,
+                             ws.root_tree.root)}
+    if (len(chain_verifiers) != 1 or processor.next_rollup_id != 1
+            or len(set(roots.values())) != 1
+            or processor.get_user_pending_deposit(0, owner) != 0
+            or processor.total_fees[0] != TOWER_FEE
+            or ("RollupProcessed", 0, *roots["processor"])
+            not in processor.events):
+        for event in processor.events:
+            log(f"  tower chain event: {event}")
+        raise AssertionError(
+            f"the processor: {len(chain_verifiers)} verifications ("
+            f"{contract.summary()}), next id {processor.next_rollup_id}, "
+            f"roots {roots}, escrow "
+            f"{processor.get_user_pending_deposit(0, owner)}, fees "
+            f"{processor.total_fees}")
+    log(f"tower chain: the port's RollupProcessor settled rollup 0; its "
+        f"verifier, the generated EVM bytecode and the native Turbo "
+        f"verifier, both accept the root proof: {contract.summary()}; "
+        f"escrow of owner {owner} {TOWER_DEPOSIT} -> 0, fees "
+        f"{processor.total_fees}, roots equal the root proof's and the "
+        f"world state's; events "
+        + json.dumps([e[0] for e in processor.events]))
+    # the user syncs the settled block from the processor
+    sdk.sync(processor)
+    ws_root = ws.data_root()
+    if sdk.data_tree.root != ws_root or published.new_data_root != ws_root:
         raise AssertionError(f"data roots: the SDK's {sdk.data_tree.root:x}, "
                              f"the world state's {ws_root:x}, the root "
-                             f"proof's {published:x}")
+                             f"proof's {published.new_data_root:x}")
     if user.balance() != TOWER_DEPOSIT - TOWER_FEE:
         raise AssertionError(f"the user's balance is {user.balance()}")
     log(f"tower sdk sync: data root {ws_root:#x} equals the world state's "
@@ -3428,6 +3544,140 @@ def elliptic_check(rows: int = ELLIPTIC_ROWS) -> None:
         raise AssertionError("elliptic_identity differs from its CPU result")
 
 
+# -- phase 5h: from a Noir program to the contract ---------------------------
+
+def contract_check(label: str, vk, proof: bytes, rng, mutations: int = 0,
+                   digest_words: int = 0) -> None:
+    """``proof`` through a ``ContractVerifier`` of ``vk`` (Turbo, Keccak):
+    both verifiers accept it; then ``mutations`` seeded one-bit mutations
+    (the first in one of the first ``digest_words`` public inputs, where
+    there are any) refused by both.  Prints the bytecode, the gas and the
+    EVM's and the native verifier's seconds."""
+    from aztec_tpu_torch.plonk.flavors import TurboFlavor
+
+    contract = ContractVerifier(vk, TurboFlavor)
+    if not contract(proof):
+        raise AssertionError(f"{label}: the contract refuses the proof: "
+                             + contract.summary())
+    for i in range(mutations):
+        pos = (32 * rng.randrange(digest_words) + rng.randrange(32)
+               if i == 0 and digest_words else rng.randrange(len(proof)))
+        bad = bytearray(proof)
+        bad[pos] ^= 1 << rng.randrange(8)
+        contract(bytes(bad))
+        if contract.runs[-1]["evm"] is True or contract.runs[-1]["native"]:
+            raise AssertionError(f"{label}: a mutation at byte {pos} passed "
+                                 + contract.summary())
+    log(f"{label} contract: accepted by the generated EVM bytecode and the "
+        f"native verifier, {mutations} one-bit mutations refused by both; "
+        + contract.summary())
+
+
+def noir_path(device: str = "cuda") -> dict:
+    """Phase 5h (``--noir``): from a Noir program to the contract.  The
+    port's ``noir.compile_program`` compiles aztec_tpu_torch/tools/
+    noir_sha256.py's SHA-256 program over a ``NOIR_MESSAGE_BYTES``-byte
+    message from the smoke's seed (16 blocks, 2^19) onto a
+    ``TurboComposer`` on the card; the eight digest words are public
+    inputs and equal hashlib's; ``check_turbo`` clean, keyed, VK, proved
+    twice with the Keccak Turbo prover (cold, then warm), each verified by
+    the native verifier, a tamper rejected; the proof accepted by the
+    port's generated bytecode in the port's EVM and by the native
+    verifier, ``NOIR_MUTATIONS`` mutations refused by both;
+    ``write_verifier_sources`` writes the five Solidity files for the VK.
+    Then the stdlib path at its own size: a ``NOIR_STDLIB_BYTES``-byte
+    message packed 16 bytes to a field element (``PackedByteArray``),
+    sliced back to range-checked bytes, hashed by ``sha256_bytes``, the
+    digest packed into two public limbs equal to hashlib's (4 blocks,
+    2^17), checked, keyed, proved once and accepted by both verifiers.
+    Returns the warm 2^19 proof's launches by kernel."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from aztec_tpu_torch import noir
+    from aztec_tpu_torch.contracts.sol_verifier import write_verifier_sources
+    from aztec_tpu_torch.plonk.composer import TurboComposer
+    from aztec_tpu_torch.stdlib.packed_byte_array import PackedByteArray
+    from aztec_tpu_torch.stdlib.sha256_circuit import sha256_bytes
+    from aztec_tpu_torch.tools import noir_sha256
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    rng = random.Random(SEED + 13)
+    msg = rng.randbytes(NOIR_MESSAGE_BYTES)
+    blocks = noir_sha256.blocks_of(msg)
+    label = f"noir sha256 {blocks} blocks"
+
+    def build():
+        c = TurboComposer(device=device)
+        t0 = time.perf_counter()
+        out = noir.compile_program(c, noir_sha256.source(blocks),
+                                   [noir_sha256.pad(msg)])
+        compile_s = time.perf_counter() - t0
+        for word in out.result_vals:
+            c.set_public_input(word.witness_index)
+        if out.result != noir_sha256.digest_words(msg):
+            raise AssertionError(f"{label}: digest {out.result} is not "
+                                 "hashlib's")
+        log(f"{label}: compiled in {compile_s:.2f} s; digest "
+            f"{hashlib.sha256(msg).hexdigest()} equals hashlib's")
+        return c
+
+    c = keyed_circuit(label, build, sync)
+    vk = c.compute_verification_key()
+    if vk.n != 1 << NOIR_LOG2N or vk.num_public_inputs != 8:
+        raise AssertionError(f"{label}: subgroup {vk.n}, "
+                             f"{vk.num_public_inputs} public inputs")
+    launches, _, proof = prove(label, c, 2, sync, "keccak")
+    contract_check(label, vk, proof, rng, NOIR_MUTATIONS, digest_words=8)
+    tmp = tempfile.mkdtemp(prefix="smoke_sol_")
+    try:
+        files = write_verifier_sources(tmp, vk, "NoirSha256")
+        names = sorted(os.path.relpath(f, tmp) for f in files)
+        if names != ["NoirSha256Verifier.sol", "cryptography/Bn254Crypto.sol",
+                     "cryptography/TurboVerifier.sol",
+                     "cryptography/Types.sol", "keys/NoirSha256Vk.sol"]:
+            raise AssertionError(f"{label}: write_verifier_sources wrote "
+                                 f"{names}")
+        sizes = {n: os.path.getsize(os.path.join(tmp, n)) for n in names}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"{label}: write_verifier_sources wrote " + json.dumps(sizes))
+    del c
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    small = rng.randbytes(NOIR_STDLIB_BYTES)
+    slabel = f"packed sha256_bytes {NOIR_STDLIB_BYTES} bytes"
+
+    def build_stdlib():
+        c = TurboComposer(device=device)
+        packed = PackedByteArray.from_bytes(c, small)
+        byte_fs = packed.to_unverified_byte_slices(1)
+        for f in byte_fs:
+            c.create_range_constraint(f.witness_index, 8)
+        out = PackedByteArray.from_field_slices(c, sha256_bytes(c, byte_fs),
+                                                1)
+        for limb in out.get_limbs():
+            limb.set_public()
+        if out.get_value() != hashlib.sha256(small).digest():
+            raise AssertionError(f"{slabel}: the digest is not hashlib's")
+        return c
+
+    c = keyed_circuit(slabel, build_stdlib, sync)
+    svk = c.compute_verification_key()
+    if svk.n != 1 << NOIR_STDLIB_LOG2N:
+        raise AssertionError(f"{slabel}: subgroup {svk.n}")
+    _, _, sproof = prove(slabel, c, 1, sync, "keccak")
+    contract_check(slabel, svk, sproof, rng)
+    del c
+    log(f"noir phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def http_path(env: dict, verifier) -> None:
     """The port's HTTP server in this process, over its own worker child:
     GET /status, then POST /create-proof of a WORKER_GATES-gate Turbo demo
@@ -3490,6 +3740,7 @@ def run(argv=()) -> int:
     warm_only = "--warm-proofs" in argv
     ultra_only = "--ultra" in argv
     ultra_recursion_only = "--ultra-recursion" in argv
+    noir_only = "--noir" in argv
     try:
         import torch
     except ImportError:
@@ -3524,13 +3775,22 @@ def run(argv=()) -> int:
         log(json.dumps({"warm_proofs": warm_proofs()}))
         log(card)
         return 0
-    if quarters_only or tower_only:
+    if quarters_only or tower_only or noir_only:
         if quarters_only:
             quarter_plans()
         if tower_only:
             fk.LAUNCHES.clear()
             log("path rollup_tower launches: "
                 + json.dumps(tower_path(), sort_keys=True))
+        if noir_only:
+            fk.LAUNCHES.clear()
+            noir_path()
+            log("path proof_noir_sha256_2pow19 launches: "
+                + json.dumps(dict(fk.LAUNCHES), sort_keys=True))
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "aztec_tpu")]
+        if leaked:
+            raise AssertionError(f"the smoke imported {leaked[:5]}")
         log(card)
         return 0
     if ultra_only or ultra_recursion_only:
@@ -3634,6 +3894,7 @@ def run(argv=()) -> int:
                            escape_hatch_path)
     path("proof_mimc_2pow17", turbo_kernels, mimc_path)
     elliptic_check()
+    noir_launches = path("proof_noir_sha256_2pow19", turbo_kernels, noir_path)
     path("msm_engine_2pow20", ["rake_scan_packed", "bucket_phase"],
          check_engine, case)
     del case
@@ -3664,6 +3925,7 @@ def run(argv=()) -> int:
             "launches_per_join_split_proof": join_split_launches.get(name, 0),
             "launches_per_ultra_2pow20_proof": ultra["per_proof"].get(name, 0),
             "launches_per_escape_hatch_proof": escape_launches.get(name, 0),
+            "launches_per_noir_2pow19_proof": noir_launches.get(name, 0),
         })
         floor = redesigned["times"].get("chain_floor_ms", {}).get(name)
         if floor is not None:
