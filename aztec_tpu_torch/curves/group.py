@@ -14,6 +14,11 @@ The formulas are the plain versions of the K2 kernels
 aztec_tpu/curves/group_pallas.py over the ``limb.KF`` helper, so the
 coordinates are bit-identical.  The unsafe adds assume P != +-Q when both
 are finite (the prover's linearly independent inputs) and handle infinity.
+
+The Jacobian ``dbl``, ``add_complete``, ``neg``, ``is_on_curve_affine`` and
+``eq_jacobian`` (the batched Pedersen lanes' formulas) are the reference's
+compositions of field ops, each op through ``field_kernels`` (one K1
+launch on the card), so their limbs are the reference's too.
 """
 
 from __future__ import annotations
@@ -199,6 +204,114 @@ def jacobian_to_proj(P, spec: FieldSpec):
 
 def proj_to_jacobian(P, spec: FieldSpec):
     return _apply(spec, f_c2j, P)
+
+
+# -- Jacobian formulas over field ops (each op one K1 launch on the card) ---
+
+
+def _ops(spec: FieldSpec):
+    from ..ff import field_kernels as fk
+
+    add = lambda a, b: fk.add_mod(a, b, spec)
+    sub = lambda a, b: fk.sub_mod(a, b, spec)
+    mul = lambda a, b: fk.mont_mul(a, b, spec)
+    sqr = lambda a: fk.mont_mul(a, a, spec)
+    return add, sub, mul, sqr
+
+
+def dbl(P, spec: FieldSpec):
+    """Jacobian doubling (a = 0): 2M + 5S.  Infinity (Z = 0) maps to
+    infinity."""
+    X, Y, Z = P
+    add, sub, mul, sqr = _ops(spec)
+    A = sqr(X)
+    B = sqr(Y)
+    C = sqr(B)
+    t = sqr(add(X, B))
+    D = sub(sub(t, A), C)
+    D = add(D, D)  # 2((X+B)^2 - A - C)
+    E = add(add(A, A), A)  # 3A
+    F = sqr(E)
+    X3 = sub(F, add(D, D))
+    C2 = add(C, C)
+    C4 = add(C2, C2)
+    C8 = add(C4, C4)
+    Y3 = sub(mul(E, sub(D, X3)), C8)
+    Z3 = mul(add(Y, Y), Z)
+    return (X3, Y3, Z3)
+
+
+def add_complete(P, Q, spec: FieldSpec):
+    """Jacobian + Jacobian for all inputs: P = Q doubles, P = -Q gives
+    infinity, an infinite operand returns the other."""
+    X1, Y1, Z1 = P
+    X2, Y2, Z2 = Q
+    add, sub, mul, sqr = _ops(spec)
+    Z1Z1 = sqr(Z1)
+    Z2Z2 = sqr(Z2)
+    U1 = mul(X1, Z2Z2)
+    U2 = mul(X2, Z1Z1)
+    S1 = mul(mul(Y1, Z2), Z2Z2)
+    S2 = mul(mul(Y2, Z1), Z1Z1)
+    H = sub(U2, U1)
+    H2 = add(H, H)
+    I = sqr(H2)
+    J = mul(H, I)
+    r = sub(S2, S1)
+    r = add(r, r)
+    V = mul(U1, I)
+    r2 = sqr(r)
+    X3 = sub(sub(r2, J), add(V, V))
+    SJ = mul(S1, J)
+    Y3 = sub(mul(r, sub(V, X3)), add(SJ, SJ))
+    ZZ = sqr(add(Z1, Z2))
+    Z3 = mul(sub(sub(ZZ, Z1Z1), Z2Z2), H)
+
+    p_inf = limb.is_zero(Z1)
+    q_inf = limb.is_zero(Z2)
+    both = ~p_inf & ~q_inf
+    x_eq = limb.eq(U1, U2) & both
+    y_eq = limb.eq(S1, S2)
+    is_dbl = x_eq & y_eq
+    is_cancel = x_eq & ~y_eq
+
+    D = dbl(P, spec)
+    X3 = limb.select(is_dbl, D[0], X3)
+    Y3 = limb.select(is_dbl, D[1], Y3)
+    Z3 = limb.select(is_dbl, D[2], Z3)
+    Z3 = limb.select(is_cancel, torch.zeros_like(Z3), Z3)
+    X3 = limb.select(p_inf, X2, limb.select(q_inf, X1, X3))
+    Y3 = limb.select(p_inf, Y2, limb.select(q_inf, Y1, Y3))
+    Z3 = limb.select(p_inf, Z2, limb.select(q_inf, Z1, Z3))
+    return (X3, Y3, Z3)
+
+
+def neg(P, spec: FieldSpec):
+    X, Y, Z = P
+    return (X, limb.neg_mod(Y, spec), Z)
+
+
+def is_on_curve_affine(Qa, spec: FieldSpec, b_int: int):
+    """y^2 == x^3 + b for Montgomery-form affine points."""
+    X, Y = Qa
+    add, _, mul, sqr = _ops(spec)
+    bm = limb.const(int_to_limbs((b_int * spec.R) % spec.modulus), X.dim(),
+                    X.device)
+    return limb.eq(sqr(Y), add(mul(sqr(X), X), bm.expand_as(X)))
+
+
+def eq_jacobian(P, Q, spec: FieldSpec):
+    """Projective equality with infinity handling."""
+    X1, Y1, Z1 = P
+    X2, Y2, Z2 = Q
+    _, _, mul, sqr = _ops(spec)
+    Z1Z1 = sqr(Z1)
+    Z2Z2 = sqr(Z2)
+    x_eq = limb.eq(mul(X1, Z2Z2), mul(X2, Z1Z1))
+    y_eq = limb.eq(mul(mul(Y1, Z2), Z2Z2), mul(mul(Y2, Z1), Z1Z1))
+    p_inf = limb.is_zero(Z1)
+    q_inf = limb.is_zero(Z2)
+    return (p_inf & q_inf) | (~p_inf & ~q_inf & x_eq & y_eq)
 
 
 def one_mont_like(Z, spec: FieldSpec):

@@ -12,7 +12,7 @@ from typing import Dict, List
 
 import torch
 
-from ..ff import FR
+from ..ff import FR, limb
 from ..ff import field_kernels as fk
 from ..ff.bn254 import FR_MOD
 from ..poly import fft_ops as pfft
@@ -57,17 +57,20 @@ class Prover:
         )
         self.wire_mono: Dict[str, torch.Tensor] = {}
         self.wire_fft: Dict[str, torch.Tensor] = {}
-        # bulk math between Fiat-Shamir barriers is queued, then drained at
-        # each round end (ref: work_queue.hpp)
+        # external-executor seam (ref: work_queue.hpp): bulk math between
+        # Fiat-Shamir barriers is queued, then drained at each round end by
+        # self.executor (None = the key's device alone)
         self.queue = WorkQueue(key)
+        self.executor = None
 
     # -- helpers ---------------------------------------------------------------
     def _commit(self, mono, tag: str):
         self.queue.add_to_queue(WorkItem(
             WorkType.MSM, tag,
-            get_data=lambda mono=mono: mono,
+            get_data=lambda mono=mono: limb.from_mont(mono, FR),
             put_result=lambda pt, tag=tag: self.transcript.add_element(
                 tag, g1_to_bytes(pt)),
+            size=int(mono.shape[1]),
         ))
 
     def _challenge(self, name: str, idx: int = 0) -> int:
@@ -353,6 +356,7 @@ class Prover:
             self.execute_sixth_round,
         ):
             rnd()
-            # drain the work queue at the Fiat-Shamir barrier
-            self.queue.process_queue()
+            # drain the work queue at the Fiat-Shamir barrier; an external
+            # executor (self.executor) may service FFT/MSM items here
+            self.queue.process_queue(self.executor)
         return self.transcript.export_transcript()

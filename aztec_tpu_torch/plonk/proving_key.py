@@ -72,8 +72,14 @@ def commit_many(srs, monos) -> list:
     """Kate commitments of several (16, m_i) Montgomery coefficient planes
     in ONE batched MSM against the SRS monomials: host affine ints (x, y),
     or None for infinity."""
-    X, Y = srs.get_monomials(max(p.shape[1] for p in monos))
-    P = msm((X, Y), [limb.from_mont(p, FR) for p in monos], BN254_G1)
+    return commit_scalars(srs, [limb.from_mont(p, FR) for p in monos])
+
+
+def commit_scalars(srs, scalars) -> list:
+    """``commit_many`` of canonical (16, m_i) scalar planes (the work
+    queue's MSM items)."""
+    X, Y = srs.get_monomials(max(s.shape[1] for s in scalars))
+    P = msm((X, Y), scalars, BN254_G1)
     x, y, inf = group.to_affine(P, BN254_G1.field)
     xs = planes_to_ints(limb.from_mont(x, BN254_G1.field))
     ys = planes_to_ints(limb.from_mont(y, BN254_G1.field))

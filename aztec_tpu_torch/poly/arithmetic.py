@@ -20,6 +20,11 @@ from ..numeric.bigint import limbs_to_ints
 from .domain import mont_plane, powers_table
 
 
+def fr_mont_plane(v: int, device="cuda") -> torch.Tensor:
+    """Canonical int -> (16,) Montgomery limb plane (host boundary)."""
+    return mont_plane(v, device)
+
+
 def to_ints(planes) -> list:
     """(16, n) Montgomery planes -> canonical ints (host)."""
     canon = limb.from_mont(planes, FR)
@@ -45,6 +50,14 @@ def poly_eval(coeffs, z_int: int) -> int:
     zp = powers_table(mont_plane(z_int, coeffs.device), n)
     out = _tree_sum(fk.mont_mul(coeffs, zp, FR), n)
     return to_ints(out[:, None])[0]
+
+
+def poly_eval_many(stack, z_int: int) -> list:
+    """Evaluate k polynomials at once: stack (16, k, n) Montgomery planes
+    -> k canonical ints."""
+    n = stack.shape[-1]
+    zp = powers_table(mont_plane(z_int, stack.device), n)
+    return to_ints(_tree_sum(fk.mont_mul(stack, zp[:, None, :], FR), n))
 
 
 def _prefix_add(x):
@@ -121,3 +134,24 @@ def compute_public_input_delta(inputs, beta: int, gamma: int, root: int):
         den = den * (t1 * k_ext + t0) % FR_MOD
         work_root = work_root * root % FR_MOD
     return num * pow(den, -1, FR_MOD) % FR_MOD
+
+
+def compute_barycentric_evaluation(evals, z_int: int, domain) -> int:
+    """r = sum_i L_i(z) f_i from evaluation form, without an iFFT (ref:
+    polynomial_arithmetic.cpp:814-846): L_i(z) = ((z^n - 1)/n) /
+    (z w^-i - 1), the denominators inverted in one batch inversion.
+
+    evals: (16, m) Montgomery evaluations over the first m points of
+    ``domain`` (m <= domain.size); z_int: canonical challenge."""
+    m = evals.shape[-1]
+    n = domain.size
+    dev = evals.device
+    z = z_int % FR_MOD
+    numerator = (pow(z, n, FR_MOD) - 1) * pow(n, -1, FR_MOD) % FR_MOD
+    winv = powers_table(mont_plane(pow(domain.root, -1, FR_MOD), dev), m)
+    den = fk.sub_mod(fk.mont_mul(winv, mont_plane(z, dev)[:, None], FR),
+                     limb.one_mont(FR, (1,), dev), FR)
+    terms = fk.mont_mul(evals, limb.batch_inv_mont(den, FR), FR)
+    s = _tree_sum(terms, m)
+    return to_ints(fk.mont_mul(s[:, None], mont_plane(numerator, dev)[:, None],
+                               FR))[0]

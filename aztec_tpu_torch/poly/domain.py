@@ -7,6 +7,7 @@ domain's device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ff import FR, limb
@@ -36,6 +37,16 @@ def powers_table(base, count: int, spec=FR):
         t = torch.cat([t, fk.mont_mul(t, bp, spec)], dim=1)
         bp = fk.mont_mul(bp, bp, spec)
     return t[:, :count]
+
+
+def _bit_reverse_indices(n: int) -> np.ndarray:
+    """(n,) int32: i with its log2(n) bits reversed."""
+    bits = n.bit_length() - 1
+    idx = np.arange(n, dtype=np.uint32)
+    out = np.zeros_like(idx)
+    for b in range(bits):
+        out |= ((idx >> b) & 1) << (bits - 1 - b)
+    return out.astype(np.int32)
 
 
 class EvaluationDomain:
@@ -70,6 +81,16 @@ class EvaluationDomain:
     @property
     def inverse_roots(self):
         return self._table("inv", self.root_inverse, max(self.size // 2, 1))
+
+    @property
+    def bitrev(self):
+        """(n,) int32 bit-reversal permutation on the domain's device (the
+        Stockham FFT never reads it)."""
+        t = self._tables.get("bitrev")
+        if t is None:
+            t = self._tables["bitrev"] = torch.as_tensor(
+                _bit_reverse_indices(self.size), device=self.device)
+        return t
 
     def coset_powers(self, g_int: int | None = None, count: int | None = None):
         """Powers of the coset generator (default: multiplicative generator)."""

@@ -37,6 +37,13 @@ def fft(x, domain: EvaluationDomain):
     return _fft_core(x, domain.forward_roots, domain.size)
 
 
+def fft_with_bitrev(x, roots, bitrev, n: int, inverse: bool = False):
+    """The FFT over an explicit root table (``roots``: the (16, n/2) powers
+    of the domain's root, or of its inverse; the reference's signature,
+    whose ``bitrev`` and ``inverse`` the self-sorting FFT does not read)."""
+    return _fft_core(x, roots, n)
+
+
 def ifft(x, domain: EvaluationDomain):
     """Evaluation form -> coefficient form (includes the 1/n scale)."""
     y = _fft_core(x, domain.inverse_roots, domain.size)

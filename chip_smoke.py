@@ -171,12 +171,31 @@ read just after:
     second beside the programming guide's rate, and every
     ``kernel_dissect`` body over 2^22 elements, on device time, each timed
     launch's output held against its plain version;
+12. the host C++ core, the Pedersen lanes and the parallel layer
+    (``--parallel`` alone): the 2^17 chain circuit replayed gate by gate
+    into the g++-built composer core (``aztec_tpu_torch/host_native``,
+    built beside nvcc in phase 1), its sigma mappings and witness columns
+    equal to the port composer's, and the C ABI (Pedersen, Blake2s,
+    Keccak, Schnorr) equal to the port's crypto/; ``compress_batch`` over
+    2^16 pairs (one level of a 2^17-leaf tree), 256 sampled lanes (zero
+    and skew lanes among them) against the host hash; phase 3's 2^20 MSM
+    through ``parallel.sharded_msm`` over 1, 2 and 4 shards of the card
+    (the chunked route), each equal to the golden, and 2^11 points over 4
+    shards (the engine route, K5) equal to the single-device MSM; the
+    2^20-point coset FFT over 4 shards equal to ``poly.fft.coset_fft``;
+    as the slice's path, the 2^17 chain proof with
+    ``MeshExecutor(Mesh.local(4))`` as the prover's executor and its coset
+    FFTs split into quarters, under phase 4's counter rng, equal byte for
+    byte to the inline proof and verified; last ``parallel.multihost``:
+    two gloo processes of two shards each over 2^16 committed points,
+    process 0's result equal to the single-device MSM;
 11. the redesign rankings (each kernel's device ms in the profiled warm
     2^17 proof less the bound of the elements it ran over; each kernel's
     launches over the paths times its device ms less its bound), a JSON
     line with every kernel's launches summed over the paths, times, bound
     and launches in a warm join-split, 2^20 Ultra, escape-hatch and 2^19
-    Noir SHA-256 proof, then the card's name and power
+    Noir SHA-256 proof, and in phase 12's Pedersen lanes and mesh proof
+    (``launches_parallel``), then the card's name and power
     limit, then the result line.
 
 Exits 2 without a result when CUDA is missing or the package is not beside
@@ -197,6 +216,9 @@ prover's two memory plans on the 2^17 Turbo circuit (keccak and unrolled)
 and the 2^20 chain circuit: keyed and proved under the counter rng with
 the key's 4n coset forms and by coset quarters, the same bytes, each
 plan's key and proof seconds and peak device memory.
+
+``python3 chip_smoke.py --parallel`` runs phase 12 alone (after the
+build).
 
 ``python3 chip_smoke.py --ultra`` runs phase 5e alone, ``--ultra-recursion``
 the in-circuit verifier (a TurboComposer of about 8.4M gates) over the 2^17
@@ -1510,30 +1532,47 @@ def redesign_ranking(results: dict, cost: dict) -> None:
             f"{score:.3f} ms" for score, k, n, e, p, b in rows))
 
 
-def check_msm(log2n: int = 20, device: str = "cuda"):
-    """Phase 3: 2^20-point MSM of the committed table vs the host golden.
-    Returns the case, for the engine's phase: ((X, Y), scalars, golden
-    affine point)."""
+def msm_case(log2n: int = 20, device: str = "cuda"):
+    """Phase 3's case: the first 2^log2n points of the committed table on
+    ``device``, seeded scalars, and the host golden (sum k_i tau^i) G:
+    ((X, Y), scalars, golden affine point)."""
     import numpy as np
     import torch
 
     from aztec_tpu_torch.curves import golden
-    from aztec_tpu_torch.curves.io import jacobian_to_host
     from aztec_tpu_torch.curves.spec import BN254_G1
-    from aztec_tpu_torch.msm.pippenger import msm
     from aztec_tpu_torch.numeric.bigint import ints_to_limbs
     from aztec_tpu_torch.srs.reference_string import DEV_TAU, load_point_table
 
     n = 1 << log2n
     r = BN254_G1.order
-    X, Y = load_point_table(n)
-    dev = torch.device(device)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    X = torch.as_tensor(X.astype(np.int32), device=dev)
-    Y = torch.as_tensor(Y.astype(np.int32), device=dev)
+    X, Y = (torch.as_tensor(p.astype(np.int32), device=device)
+            for p in load_point_table(n))
     rnd = random.Random(SEED)
     ks = [rnd.randrange(r) for _ in range(n)]
-    S = torch.as_tensor(ints_to_limbs(ks).astype(np.int32), device=dev)
+    S = torch.as_tensor(ints_to_limbs(ks).astype(np.int32), device=device)
+    kk, t = 0, 1
+    for k in ks:
+        kk = (kk + k * t) % r
+        t = t * DEV_TAU % r
+    expect = golden.GoldenCurve(BN254_G1).mul(kk, (BN254_G1.gen_x,
+                                                   BN254_G1.gen_y))
+    return (X, Y), S, expect
+
+
+def check_msm(log2n: int = 20, device: str = "cuda"):
+    """Phase 3: 2^20-point MSM of the committed table vs the host golden.
+    Returns the case, for the engine's phase: ((X, Y), scalars, golden
+    affine point)."""
+    import torch
+
+    from aztec_tpu_torch.curves.io import jacobian_to_host
+    from aztec_tpu_torch.curves.spec import BN254_G1
+    from aztec_tpu_torch.msm.pippenger import msm
+
+    n = 1 << log2n
+    (X, Y), S, expect = msm_case(log2n, device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     t0 = time.perf_counter()
     P = msm((X, Y), S, BN254_G1)
     sync()
@@ -1542,12 +1581,6 @@ def check_msm(log2n: int = 20, device: str = "cuda"):
     P = msm((X, Y), S, BN254_G1)
     sync()
     warm = time.perf_counter() - t0
-    kk, t = 0, 1
-    for k in ks:
-        kk = (kk + k * t) % r
-        t = t * DEV_TAU % r
-    expect = golden.GoldenCurve(BN254_G1).mul(kk, (BN254_G1.gen_x,
-                                                   BN254_G1.gen_y))
     got = jacobian_to_host(P, BN254_G1)[0]
     if got != expect:
         raise AssertionError(f"2^{log2n} MSM differs from the host golden")
@@ -1976,10 +2009,10 @@ def compare_msm_paths(c, reps: int = 3, device: str = "cuda") -> None:
     from aztec_tpu_torch.plonk import proving_key
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    batched, tail_max = proving_key.commit_many, chunked.TAIL_MAX
+    batched, tail_max = proving_key.commit_scalars, chunked.TAIL_MAX
 
-    def one_at_a_time(srs, monos):
-        return [batched(srs, [m])[0] for m in monos]
+    def one_at_a_time(srs, scalars):
+        return [batched(srs, [s])[0] for s in scalars]
 
     variants = {"tail_batched": (tail_max, batched),
                 "padded_batched": (0, batched),
@@ -1990,7 +2023,7 @@ def compare_msm_paths(c, reps: int = 3, device: str = "cuda") -> None:
     try:
         for _ in range(reps):
             for name, (tmax, commit) in variants.items():
-                chunked.TAIL_MAX, proving_key.commit_many = tmax, commit
+                chunked.TAIL_MAX, proving_key.commit_scalars = tmax, commit
                 prover = c.create_prover()
                 prover.rng = counter_rng(SEED)
                 sync()
@@ -1999,7 +2032,7 @@ def compare_msm_paths(c, reps: int = 3, device: str = "cuda") -> None:
                 sync()
                 secs[name].append(time.perf_counter() - t0)
     finally:
-        chunked.TAIL_MAX, proving_key.commit_many = tail_max, batched
+        chunked.TAIL_MAX, proving_key.commit_scalars = tail_max, batched
     if len(proofs) != 1:
         raise AssertionError("the MSM paths give different proofs")
     log("msm paths, warm proof seconds (one rng, same bytes): "
@@ -3727,6 +3760,371 @@ def http_path(env: dict, verifier) -> None:
         worker.stop()
 
 
+# -- phase 12: the host C++ core, the Pedersen lanes, the parallel layer ----
+
+PARALLEL_LOG2N = 17        # the chain circuit proved through the MeshExecutor
+PARALLEL_SHARDS = 4        # shards of the mesh proof, the engine MSM, the FFT
+PEDERSEN_PAIRS = 1 << 16   # one level of a 2^17-leaf Merkle tree
+PEDERSEN_SAMPLES = 256     # lanes held to the host hash
+MSM_SHARDS = (1, 2, 4)     # the sharded 2^20 MSM (phase 3's case)
+SHARDED_MSM_LOG2N = 20
+SHARDED_ENGINE_LOG2N = 11  # shards of 2^9 points: the engine route
+SHARDED_FFT_LOG2N = 20
+MULTIHOST_N = 1 << 16
+MULTIHOST_TIMEOUT = 300
+
+
+def _sync(device: str):
+    import torch
+
+    return torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+
+def _u64x4(vals):
+    """Canonical ints -> (k, 4) uint64 little-endian words."""
+    import numpy as np
+
+    from aztec_tpu_torch.numeric.bigint import ints_to_limbs
+
+    w = ints_to_limbs(vals).astype(np.uint64)
+    return np.ascontiguousarray(
+        (w[0::4] | (w[1::4] << np.uint64(16)) | (w[2::4] << np.uint64(32))
+         | (w[3::4] << np.uint64(48))).T)
+
+
+def host_core_check(c, build_s: float) -> None:
+    """Phase 12a: the chain circuit replayed gate by gate into the host
+    composer core (``cc_gate``): its sigma mappings and exported witness
+    columns equal the port composer's (the external coset: 255 natively,
+    4 in Python); then the C ABI against the port's crypto/ and hashlib."""
+    import ctypes
+    import hashlib
+
+    import numpy as np
+
+    from aztec_tpu_torch.crypto import pedersen as ped
+    from aztec_tpu_torch.crypto import schnorr as sch
+    from aztec_tpu_torch.crypto.keccak import keccak256
+    from aztec_tpu_torch.ff import FR, limb
+    from aztec_tpu_torch.host_native import cbind, load_composer_core
+
+    if not np.array_equal(c.real_variables(), np.arange(len(c.variables))):
+        raise AssertionError("the replay carries no copy merges, the "
+                             "circuit has some")
+    lib = load_composer_core()
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    t0 = time.perf_counter()
+    size = c.subgroup_size()
+    values = _u64x4(c.variables)
+    wires = np.ascontiguousarray(np.stack([c.w_l, c.w_r, c.w_o], axis=1)
+                                 .astype(np.uint32))
+    sels = np.ascontiguousarray(np.stack(
+        [_u64x4(q) for q in (c.q_m, c.q_1, c.q_2, c.q_3, c.q_c)], axis=1))
+    cc = lib.cc_new(5)
+    try:
+        base = values.ctypes.data
+        for i in range(len(c.variables)):
+            lib.cc_add_variable(cc, ctypes.cast(base + 32 * i, u64p))
+        wb, sb = wires.ctypes.data, sels.ctypes.data
+        for i in range(c.n):
+            lib.cc_gate(cc, 3, ctypes.cast(wb + 12 * i, u32p),
+                        ctypes.cast(sb + 160 * i, u64p))
+        for p in c.public_inputs:
+            lib.cc_set_public(cc, p)
+        t_replay = time.perf_counter() - t0
+        if (lib.cc_num_gates(cc), lib.cc_num_vars(cc),
+                lib.cc_num_public(cc)) != (c.n, len(c.variables),
+                                           len(c.public_inputs)):
+            raise AssertionError("the composer core's counts differ")
+        nr = np.zeros((3, size), np.int32)
+        fa = np.zeros((3, size), np.uint8)
+        lib.cc_sigma_mappings(
+            cc, 3, size, nr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            fa.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        py_next, py_factor = c.compute_sigma_mappings(size, 3)
+        fa = fa.astype(np.int32)
+        py_factor = np.asarray(py_factor)
+        if not (np.array_equal(nr, np.asarray(py_next))
+                and np.array_equal(np.where(fa == 255, -1, fa),
+                                   np.where(py_factor == 4, -1, py_factor))):
+            raise AssertionError("the composer core's sigma mappings differ")
+        planes, _ = c.witness_planes(size, 3)
+        for k in range(3):
+            out = np.zeros((size, 4), np.uint64)
+            lib.cc_export_witness(cc, k, size, out.ctypes.data_as(u64p))
+            got = np.stack([(out[:, j // 4] >> np.uint64(16 * (j % 4)))
+                            & np.uint64(0xFFFF) for j in range(16)])
+            want = limb.from_mont(planes[f"w_{k + 1}"], FR).cpu().numpy()
+            if not np.array_equal(got.astype(np.int64), want.astype(np.int64)):
+                raise AssertionError(f"the composer core's w_{k + 1} differs")
+    finally:
+        lib.cc_free(cc)
+    t_core = time.perf_counter() - t0
+
+    rnd = random.Random(SEED + 11)
+    for _ in range(3):
+        a, b = rnd.randrange(ped.P), rnd.randrange(ped.P)
+        if cbind.compress_fields(a, b) != ped.compress_native(a, b):
+            raise AssertionError("C ABI compress differs")
+    vals = [rnd.randrange(ped.P) for _ in range(4)]
+    if (cbind.compress_many(vals, 0) != ped.compress_many(vals, 0)
+            or cbind.commit(vals, 2) != ped.encrypt_native(vals, 2)
+            or cbind.get_generator(5) != ped.get_generator(5)):
+        raise AssertionError("C ABI Pedersen differs")
+    for data in (b"", bytes(range(200)), b"aztec" * 31):
+        if (cbind.blake2s(data) != hashlib.blake2s(data).digest()
+                or cbind.keccak256(data) != keccak256(data)
+                or cbind.buffer_to_field(data)
+                != ped.compress_buffer_to_field(data)):
+            raise AssertionError("C ABI hashes differ")
+    priv, k = rnd.randrange(1, 1 << 250), rnd.randrange(1, 1 << 250)
+    msg = b"phase 12 schnorr"
+    pub = cbind.compute_public_key(priv)
+    sig = cbind.construct_signature(msg, priv, k)
+    if (pub != sch.derive_public_key(priv)
+            or sig != sch.construct_signature(msg, priv, k=k)
+            or not sch.verify_signature(msg, pub, sig)
+            or not cbind.verify_signature(msg, pub, sig)
+            or cbind.verify_signature(msg + b"!", pub, sig)):
+        raise AssertionError("C ABI Schnorr differs")
+    log(f"phase 12a host core: g++ build_s={build_s:.1f} (both libraries, "
+        f"beside nvcc); the 2^{PARALLEL_LOG2N} chain circuit ({c.n} gates, "
+        f"{len(c.variables)} variables) replayed in {t_replay:.2f}s, sigma "
+        f"mappings and w_1..w_3 equal the composer's ({t_core:.2f}s in all); "
+        "C ABI Pedersen, Blake2s, Keccak and Schnorr equal the port's crypto")
+
+
+def pedersen_lanes_check(device: str = "cuda") -> dict:
+    """Phase 12b: ``compress_batch`` over PEDERSEN_PAIRS pairs (one level
+    of a 2^17-leaf tree), cold and warm; PEDERSEN_SAMPLES lanes, the zero
+    lanes among them, against the port's host ``compress_native``.
+    Returns the warm call's launches."""
+    import numpy as np
+    import torch
+
+    from aztec_tpu_torch.crypto import pedersen as ped
+    from aztec_tpu_torch.crypto.pedersen_device import compress_batch
+    from aztec_tpu_torch.ff import field_kernels as fk
+    from aztec_tpu_torch.numeric.bigint import ints_to_limbs, limbs_to_ints
+
+    sync = _sync(device)
+    H = PEDERSEN_PAIRS
+    rnd = random.Random(SEED + 12)
+    left = [rnd.randrange(ped.P) for _ in range(H)]
+    right = [rnd.randrange(ped.P) for _ in range(H)]
+    # zero on the left, on the right, on both; even values (the skew)
+    left[0] = right[1] = left[2] = right[2] = 0
+    left[3], right[3] = 2, 4
+    L, R = (torch.as_tensor(ints_to_limbs(v).astype(np.int32), device=device)
+            for v in (left, right))
+    t0 = time.perf_counter()
+    compress_batch(L, R, 0)
+    sync()
+    cold = time.perf_counter() - t0
+    before = dict(fk.LAUNCHES)
+    t0 = time.perf_counter()
+    out = compress_batch(L, R, 0)
+    sync()
+    warm = time.perf_counter() - t0
+    launches = {k: v - before.get(k, 0) for k, v in fk.LAUNCHES.items()
+                if v - before.get(k, 0)}
+    got = limbs_to_ints(out.cpu().numpy().astype(np.uint32))
+    sample = sorted({0, 1, 2, 3} | set(rnd.sample(range(4, H),
+                                                  PEDERSEN_SAMPLES - 4)))
+    t0 = time.perf_counter()
+    bad = [i for i in sample if got[i] != ped.compress_native(left[i],
+                                                              right[i])]
+    t_host = time.perf_counter() - t0
+    if bad or got[2] != 0:
+        raise AssertionError(f"Pedersen lanes {bad[:5]} differ from the host")
+    log(f"phase 12b pedersen lanes: {H} compressions cold_s={cold:.3f} "
+        f"warm_s={warm:.3f} hashes_per_s={2 * H / warm:.0f}; "
+        f"{len(sample)} sampled lanes (zero and skew lanes among them) equal "
+        f"the host's ({t_host:.2f}s on the host); warm launches "
+        f"{sum(launches.values())}: {json.dumps(launches, sort_keys=True)}")
+    return launches
+
+
+def sharded_msm_check(device: str = "cuda") -> None:
+    """Phase 12c: phase 3's 2^20-point MSM through ``sharded_msm`` over
+    1, 2 and 4 shards of the card (the chunked route), each equal to the
+    golden in affine."""
+    from aztec_tpu_torch.curves.io import jacobian_to_host
+    from aztec_tpu_torch.curves.spec import BN254_G1
+    from aztec_tpu_torch.parallel import Mesh, sharded_msm
+
+    sync = _sync(device)
+    (X, Y), S, expect = msm_case(SHARDED_MSM_LOG2N, device)
+    secs = {}
+    for D in MSM_SHARDS:
+        mesh = Mesh.local(D, device)
+        ts = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            P = sharded_msm(mesh, (X, Y), S, BN254_G1)
+            sync()
+            ts.append(round(time.perf_counter() - t0, 4))
+        if jacobian_to_host(P, BN254_G1)[0] != expect:
+            raise AssertionError(f"sharded 2^{SHARDED_MSM_LOG2N} MSM over "
+                                 f"{D} shards differs from the golden")
+        secs[D] = ts
+    log(f"phase 12c sharded msm 2^{SHARDED_MSM_LOG2N} (chunked route): "
+        "golden OK at every D; "
+        f"seconds (cold, warm) by shards {json.dumps(secs)}")
+
+
+def sharded_engine_check(device: str = "cuda") -> None:
+    """Phase 12c, second part: 2^11 points over 4 shards of 2^9 (below the
+    chunked route's 2^11: the engine on each shard, K5), equal to the
+    single-device MSM and the golden."""
+    from aztec_tpu_torch.curves.io import jacobian_to_host
+    from aztec_tpu_torch.curves.spec import BN254_G1
+    from aztec_tpu_torch.msm.pippenger import msm
+    from aztec_tpu_torch.parallel import Mesh, sharded_msm
+
+    sync = _sync(device)
+    (X, Y), S, expect = msm_case(SHARDED_ENGINE_LOG2N, device)
+    single = jacobian_to_host(msm((X, Y), S, BN254_G1), BN254_G1)[0]
+    t0 = time.perf_counter()
+    P = sharded_msm(Mesh.local(PARALLEL_SHARDS, device), (X, Y), S, BN254_G1)
+    sync()
+    secs = time.perf_counter() - t0
+    if not jacobian_to_host(P, BN254_G1)[0] == single == expect:
+        raise AssertionError("the sharded engine MSM differs")
+    log(f"phase 12c sharded msm 2^{SHARDED_ENGINE_LOG2N} over "
+        f"{PARALLEL_SHARDS} shards (engine route): equal to the "
+        f"single-device MSM and the golden, {secs:.3f}s")
+
+
+def sharded_fft_check(device: str = "cuda") -> None:
+    """Phase 12d: the 2^20-point coset FFT over 4 shards equal, limb for
+    limb in canonical form, to ``poly.fft.coset_fft``."""
+    import torch
+
+    from aztec_tpu_torch.ff import FR, limb
+    from aztec_tpu_torch.parallel import Mesh
+    from aztec_tpu_torch.parallel.sharded_fft import sharded_coset_fft
+    from aztec_tpu_torch.poly import fft_ops as pfft
+    from aztec_tpu_torch.poly.domain import EvaluationDomain
+
+    sync = _sync(device)
+    N = 1 << SHARDED_FFT_LOG2N
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 13)
+    # canonical limbs: a top limb below p's (0x3064) keeps every value < p
+    x = torch.randint(0, 1 << 16, (16, N), generator=gen, device=device,
+                      dtype=torch.int32)
+    x[15] = torch.randint(0, 0x3064, (N,), generator=gen, device=device,
+                          dtype=torch.int32)
+    x = limb.to_mont(x, FR)
+    dom = EvaluationDomain(N, device)
+    mesh = Mesh.local(PARALLEL_SHARDS, device)
+    t0 = time.perf_counter()
+    want = pfft.coset_fft(x, dom)
+    sync()
+    t_solo = time.perf_counter() - t0
+    ts = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        got = sharded_coset_fft(mesh, x, dom)
+        sync()
+        ts.append(round(time.perf_counter() - t0, 4))
+    if not torch.equal(limb.from_mont(got, FR), limb.from_mont(want, FR)):
+        raise AssertionError("the sharded coset FFT differs")
+    log(f"phase 12d sharded coset fft 2^{SHARDED_FFT_LOG2N} over "
+        f"{PARALLEL_SHARDS} shards: equal to coset_fft; single-device "
+        f"{t_solo:.4f}s, sharded (cold, warm) {ts}")
+
+
+def mesh_proof(c, inline: bytes, device: str = "cuda") -> dict:
+    """Phase 12e, the slice's end-to-end path: the chain proof with
+    ``prover.executor = MeshExecutor(Mesh.local(4))``, which has every
+    coset FFT split into quarters (``splits_ffts``), under phase 4's
+    counter rng, cold and warm: both equal ``inline`` byte for byte, the port's verifier
+    accepts, a tamper fails.  Returns the warm proof's launches."""
+    from aztec_tpu_torch.ff import field_kernels as fk
+    from aztec_tpu_torch.parallel import Mesh
+    from aztec_tpu_torch.plonk.work_queue import MeshExecutor
+
+    sync = _sync(device)
+    executor = MeshExecutor(Mesh.local(PARALLEL_SHARDS, device))
+    secs, proofs = [], set()
+    for _ in range(2):
+        prover = c.create_prover()
+        prover.rng = counter_rng(SEED)
+        prover.executor = executor
+        before = dict(fk.LAUNCHES)
+        t0 = time.perf_counter()
+        proofs.add(prover.construct_proof())
+        sync()
+        secs.append(round(time.perf_counter() - t0, 4))
+    launches = {k: v - before.get(k, 0) for k, v in fk.LAUNCHES.items()
+                if v - before.get(k, 0)}
+    if proofs != {inline}:
+        raise AssertionError("the MeshExecutor proof differs from the inline "
+                             "proof")
+    verifier = c.create_verifier()
+    bad = bytearray(inline)
+    bad[len(bad) // 3] ^= 1
+    if not verifier.verify_proof(inline) or verifier.verify_proof(bytes(bad)):
+        raise AssertionError("the MeshExecutor proof does not verify")
+    log(f"phase 12e proof 2^{PARALLEL_LOG2N} through MeshExecutor over "
+        f"{PARALLEL_SHARDS} shards, coset FFTs in quarters: equal to the "
+        f"inline proof byte for byte (sha256 "
+        f"{hashlib.sha256(inline).hexdigest()[:16]}), verified, tamper "
+        f"rejected; seconds (cold, warm) {secs}; warm launches "
+        f"{sum(launches.values())}: {json.dumps(launches, sort_keys=True)}")
+    return launches
+
+
+def multihost_check(device: str = "cuda") -> None:
+    """Phase 12f: ``multihost.launch`` with 2 processes of 2 shards each on
+    the card over MULTIHOST_N committed points (the reference's engine
+    config): process 0's result equals the single-device MSM and the
+    golden; a failed launch fails the phase."""
+    from aztec_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    if not multihost.launch(n=MULTIHOST_N, device=device,
+                            timeout_s=MULTIHOST_TIMEOUT):
+        raise AssertionError("the multihost run failed")
+    log(f"phase 12f multihost: {multihost.N_PROCS} gloo processes x "
+        f"{multihost.DEVS_PER_PROC} shards over {MULTIHOST_N} points, equal "
+        f"to the single-device MSM and the golden, "
+        f"{time.perf_counter() - t0:.1f}s (process start-up included)")
+
+
+def parallel_phase(path, mesh_kernels, host_build_s: float,
+                   device: str = "cuda") -> None:
+    """Phase 12 (``--parallel`` alone): 12a-12f, each path through ``path``
+    (launch counts cleared before it, read after)."""
+    t_phase = time.perf_counter()
+    sync = _sync(device)
+    t0 = time.perf_counter()
+    c = build_chain(PARALLEL_LOG2N, device)
+    prover = c.create_prover()
+    prover.rng = counter_rng(SEED)
+    inline = prover.construct_proof()
+    sync()
+    log(f"phase 12: the 2^{PARALLEL_LOG2N} chain circuit built, keyed and "
+        f"proved inline in {time.perf_counter() - t0:.2f}s")
+    host_core_check(c, host_build_s)
+    path("pedersen_lanes_2pow16", ["mont_mul", "add_mod", "sub_mod",
+                                   "mont_pow"], pedersen_lanes_check, device)
+    path("sharded_msm_2pow20", ["rake_scan_packed", "proj_add_complete",
+                                "add_unsafe", "jacobian_to_proj",
+                                "proj_to_jacobian", "proj_dbl_n"],
+         sharded_msm_check, device)
+    path(f"sharded_msm_engine_2pow{SHARDED_ENGINE_LOG2N}", ["rake_scan"],
+         sharded_engine_check, device)
+    path("sharded_fft_2pow20", ["butterfly", "mont_mul", "add_mod"],
+         sharded_fft_check, device)
+    path("proof_2pow17_mesh", mesh_kernels, mesh_proof, c, inline, device)
+    multihost_check(device)
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f}s")
+
+
 def run(argv=()) -> int:
     """The smoke; with ``--redesigned``, only phase 2's checks of K1-K3 and
     the redesigned kernels' phase (registers, spills, SASS, edge lanes, the
@@ -3741,6 +4139,7 @@ def run(argv=()) -> int:
     ultra_only = "--ultra" in argv
     ultra_recursion_only = "--ultra-recursion" in argv
     noir_only = "--noir" in argv
+    parallel_only = "--parallel" in argv
     try:
         import torch
     except ImportError:
@@ -3765,11 +4164,57 @@ def run(argv=()) -> int:
 
     from aztec_tpu_torch.tools import timing
 
+    # wall seconds of the default run's spans, each from the previous mark
+    spans = {}
+    clock = [time.perf_counter()]
+
+    def span(name):
+        now = time.perf_counter()
+        spans[name] = round(now - clock[0], 1)
+        clock[0] = now
+
     card = timing.card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    t_build = native.build()
-    log(f"build: {t_build:.1f}s for {', '.join(native.SOURCES)}")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from aztec_tpu_torch.host_native import build as host_build
+
+    # the host C++ core's g++ builds run beside the nvcc builds
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(host_build.build_all)
+        t_build = native.build()
+        t_host = host.result()
+    log(f"build: {t_build:.1f}s for {', '.join(native.SOURCES)}; g++ "
+        f"{t_host:.1f}s for {', '.join(host_build.LIBRARIES)}")
+    span("card, build")
+
+    # each path runs with the counts set to 0 just before it and read just
+    # after; the kernels line sums them
+    pr1 = [k for k in KERNELS if k not in MICROBENCH
+           and k not in ("rake_scan", "bucket_phase", "proj_dbl", "mul_add")]
+    # the sharded MSMs pad to whole passes: no ragged tail to mix-add
+    mesh_kernels = [k for k in pr1 if k != "mixed_add_unsafe"]
+    paths = {}
+
+    def path(name, required, fn, *args):
+        fk.LAUNCHES.clear()
+        out = fn(*args)
+        paths[name] = dict(fk.LAUNCHES)
+        log(f"path {name} launches: {json.dumps(paths[name], sort_keys=True)}")
+        missing = [k for k in required if not paths[name].get(k)]
+        if missing:
+            raise AssertionError(f"path {name} never launched {missing}")
+        return out
+
+    if parallel_only:
+        parallel_phase(path, mesh_kernels, t_host)
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "aztec_tpu")]
+        if leaked:
+            raise AssertionError(f"the smoke imported {leaked[:5]}")
+        log(card)
+        return 0
 
     if warm_only:
         log(json.dumps({"warm_proofs": warm_proofs()}))
@@ -3842,22 +4287,7 @@ def run(argv=()) -> int:
                              "their plain versions")
     check_new_kernels(results, rate)
     check_microbench(results)
-
-    # each path runs with the counts set to 0 just before it and read just
-    # after; the kernels line sums them
-    pr1 = [k for k in KERNELS if k not in MICROBENCH
-           and k not in ("rake_scan", "bucket_phase", "proj_dbl", "mul_add")]
-    paths = {}
-
-    def path(name, required, fn, *args):
-        fk.LAUNCHES.clear()
-        out = fn(*args)
-        paths[name] = dict(fk.LAUNCHES)
-        log(f"path {name} launches: {json.dumps(paths[name], sort_keys=True)}")
-        missing = [k for k in required if not paths[name].get(k)]
-        if missing:
-            raise AssertionError(f"path {name} never launched {missing}")
-        return out
+    span("kernel checks")
 
     case = path("msm_chunked_2pow20", ["rake_scan_packed"], check_msm)
     c, per_proof, cost = path("proof_2pow17", pr1, main_path)
@@ -3874,7 +4304,9 @@ def run(argv=()) -> int:
     join_split_launches = path("proof_join_split_2pow17", turbo_kernels,
                                join_split_path)
     path("proof_account", turbo_kernels, account_path)
+    span("2^17 Standard, Turbo, join-split, account")
     worker_path()
+    span("worker, HTTP")
     # the tower's proofs run in the worker: it counts their launches
     fk.LAUNCHES.clear()
     paths["rollup_tower"] = tower_path()
@@ -3883,6 +4315,7 @@ def run(argv=()) -> int:
     missing = [k for k in turbo_kernels if not paths["rollup_tower"].get(k)]
     if missing:
         raise AssertionError(f"path rollup_tower never launched {missing}")
+    span("rollup tower (5d)")
     # phase 5e runs in a process of its own, which counts its launches
     ultra = ultra_fresh()
     paths.update(ultra["paths"])
@@ -3890,11 +4323,14 @@ def run(argv=()) -> int:
         missing = [k for k in turbo_kernels if not paths[name].get(k)]
         if missing:
             raise AssertionError(f"path {name} never launched {missing}")
+    span("Ultra (5e)")
     escape_launches = path("proof_escape_hatch_prod", turbo_kernels,
                            escape_hatch_path)
     path("proof_mimc_2pow17", turbo_kernels, mimc_path)
     elliptic_check()
+    span("escape hatch, MiMC, elliptic (5f, 5g)")
     noir_launches = path("proof_noir_sha256_2pow19", turbo_kernels, noir_path)
+    span("Noir (5h)")
     path("msm_engine_2pow20", ["rake_scan_packed", "bucket_phase"],
          check_engine, case)
     del case
@@ -3904,6 +4340,9 @@ def run(argv=()) -> int:
          check_fixed_base)
     path("proof_2pow20", pr1 + ["proj_dbl"], main_path, 20, "cuda", False)
     path("microbench", MICROBENCH, microbench_path, results)
+    span("engine, small tier, SRS, 2^20 proof, microbenchmarks")
+    parallel_phase(path, mesh_kernels, t_host)
+    span("parallel (12)")
     redesign_ranking(results, cost)
 
     kernels = []
@@ -3926,6 +4365,8 @@ def run(argv=()) -> int:
             "launches_per_ultra_2pow20_proof": ultra["per_proof"].get(name, 0),
             "launches_per_escape_hatch_proof": escape_launches.get(name, 0),
             "launches_per_noir_2pow19_proof": noir_launches.get(name, 0),
+            "launches_parallel": sum(paths[p].get(name, 0) for p in (
+                "pedersen_lanes_2pow16", "proof_2pow17_mesh")),
         })
         floor = redesigned["times"].get("chain_floor_ms", {}).get(name)
         if floor is not None:
@@ -3939,6 +4380,9 @@ def run(argv=()) -> int:
     missing = [k["name"] for k in kernels
                if k["launches"] == 0 and k["name"] not in NO_PATH]
     path_ranking(kernels)
+    span("rankings")
+    log(f"spans, wall seconds: {json.dumps(spans)}; "
+        f"total {round(sum(spans.values()), 1)}")
     log(json.dumps({"kernels": kernels}))
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "aztec_tpu")]
     if leaked:

@@ -1,5 +1,7 @@
 """aztec_tpu_torch.poly (Stockham FFT through the K1 butterfly) against
-aztec_tpu.poly.fft, bit-exact, and against a host DFT."""
+aztec_tpu.poly.fft, bit-exact, and against a host DFT; the bit-reversal
+table, ``fft_with_bitrev``, ``fr_mont_plane``, ``poly_eval_many`` and the
+barycentric evaluation against aztec_tpu's and host formulas."""
 
 import functools
 
@@ -13,7 +15,7 @@ from aztec_tpu.poly.domain import EvaluationDomain as JDomain
 from aztec_tpu_torch.ff import FR
 from aztec_tpu_torch.ff.bn254 import FR_MOD
 from aztec_tpu_torch.numeric.bigint import ints_to_limbs, limbs_to_ints
-from aztec_tpu_torch.poly import EvaluationDomain, arithmetic
+from aztec_tpu_torch.poly import EvaluationDomain, arithmetic, domain
 from aztec_tpu_torch.poly import fft_ops as pfft
 
 FUNCS = ("fft", "ifft", "coset_fft", "coset_ifft")
@@ -91,3 +93,69 @@ def test_poly_eval_and_kate_divide():
         prod[j + 1] = (prod[j + 1] + wj) % FR_MOD
         prod[j] = (prod[j] - z * wj) % FR_MOD
     assert prod[:n] == src and prod[n] == 0
+
+
+@pytest.mark.parametrize("n", [16, 64])
+def test_bitrev_and_fft_with_bitrev(n):
+    """``_bit_reverse_indices`` and ``EvaluationDomain.bitrev`` against the
+    reference's; ``fft_with_bitrev`` over the forward and inverse root
+    tables against the port's FFT and the reference's (n = 16)."""
+    from aztec_tpu.poly import domain as jdomain
+
+    ref = jdomain._bit_reverse_indices(n)
+    assert np.array_equal(domain._bit_reverse_indices(n), ref)
+    d = EvaluationDomain(n, "cpu")
+    assert np.array_equal(d.bitrev.numpy(), ref)
+    x = _mont(_coeffs(n))
+    tx = torch.from_numpy(x.astype(np.int32))
+    fwd = pfft.fft_with_bitrev(tx, d.forward_roots, d.bitrev, n)
+    assert torch.equal(fwd, pfft.fft(tx, d))
+    inv = pfft.fft_with_bitrev(fwd, d.inverse_roots, d.bitrev, n,
+                               inverse=True)
+    assert _from_mont(inv) == [v * n % FR_MOD for v in _coeffs(n)]
+    if n == 16:
+        jd = JDomain(n)
+        want = jfft.fft_with_bitrev(jnp.asarray(x), jd.forward_roots,
+                                    jd.bitrev, n)
+        assert np.array_equal(fwd.numpy().astype(np.int64),
+                              np.asarray(want).astype(np.int64))
+
+
+def test_fr_mont_plane_and_poly_eval_many():
+    from aztec_tpu.poly import arithmetic as jarith
+
+    for v in (0, 1, FR_MOD - 1, 0xDEADBEEF):
+        assert np.array_equal(
+            arithmetic.fr_mont_plane(v, "cpu").numpy().astype(np.int64),
+            np.asarray(jarith.fr_mont_plane(v)).astype(np.int64))
+    k, n = 3, 16
+    polys = [_coeffs(n + i)[:n] for i in range(k)]
+    stack = np.stack([_mont(p) for p in polys], axis=1)      # (16, k, n)
+    z = 0x1234567
+    got = arithmetic.poly_eval_many(torch.from_numpy(stack.astype(np.int32)),
+                                    z)
+    assert got == [sum(c * pow(z, j, FR_MOD) for j, c in enumerate(p))
+                   % FR_MOD for p in polys]
+    assert got == jarith.poly_eval_many(jnp.asarray(stack), z)
+
+
+@pytest.mark.parametrize("m", [16, 10])
+def test_barycentric_evaluation(m):
+    """sum_i L_i(z) f_i over the first m points of a 16-point domain (the
+    reference's num_coeffs < domain.size case at m = 10) against the host
+    formula and, at m = 10, the reference's."""
+    from aztec_tpu.poly import arithmetic as jarith
+
+    n = 16
+    d = EvaluationDomain(n, "cpu")
+    f = _coeffs(m + 3)[:m]
+    z = 0x7654321
+    got = arithmetic.compute_barycentric_evaluation(
+        torch.from_numpy(_mont(f).astype(np.int32)), z, d)
+    num = (pow(z, n, FR_MOD) - 1) * pow(n, -1, FR_MOD) % FR_MOD
+    expect = sum(num * pow((z * pow(d.root, -i, FR_MOD) - 1) % FR_MOD, -1,
+                           FR_MOD) * fi for i, fi in enumerate(f)) % FR_MOD
+    assert got == expect
+    if m < n:
+        assert got == jarith.compute_barycentric_evaluation(
+            jnp.asarray(_mont(f)), z, JDomain(n))

@@ -75,6 +75,15 @@ compresses it in-circuit and checks its membership of a key set
 (``recursive_vk_circuit``); tests/test_torch_recursion.py holds the port
 to both (aztec_tpu's generators for the 123 inputs take minutes).
 
+Also ``pedersen_lanes.npz``: aztec_tpu's ``hash_single_batch`` (the
+batched Pedersen lanes) at hash indices 0 and 1 on eight seeded lanes
+(zero, the skew, p - 1 among them), Jacobian limbs; and ``sharded_fft.npz``:
+aztec_tpu's ``sharded_coset_fft`` at N = 64 over meshes of 2 and 4 virtual
+CPU devices.  tests/test_torch_pedersen_device.py and
+tests/test_torch_parallel.py hold the port to them (about a minute):
+
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/torch_vectors/make_vectors.py pedersen_lanes sharded_fft
+
 Also ``stump_d256.json``: aztec_tpu's ``StumpTree`` at depth 256 after a
 few seeded nullifier updates (``stump_vector``): its roots and one hash
 path, which tests/test_torch_stump_tree.py holds the port to:
@@ -697,6 +706,73 @@ def pow_vectors() -> None:
     print("mont_pow: written", flush=True)
 
 
+PEDERSEN_SEED = 23
+PEDERSEN_INDICES = (0, 1)
+
+
+def pedersen_lane_values() -> list:
+    """The lanes of ``pedersen_lanes.npz``: 0, 1, 2, p - 1, a value whose
+    base is even (the skew), and three seeded field elements."""
+    rng = np.random.default_rng(PEDERSEN_SEED)
+    return [0, 1, 2, FR_MOD - 1, 0xDEADBEEF] + [
+        int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(3)]
+
+
+def pedersen_vectors() -> None:
+    """``pedersen_lanes.npz``: aztec_tpu's ``hash_single_batch`` Jacobian
+    limbs (X, Y, Z) of ``pedersen_lane_values`` at each hash index of
+    PEDERSEN_INDICES."""
+    import jax.numpy as jnp
+
+    from aztec_tpu.crypto.pedersen_device import hash_single_batch
+    from aztec_tpu.numeric.bigint import ints_to_limbs
+
+    vals = jnp.asarray(ints_to_limbs(pedersen_lane_values()))
+    out = {}
+    for i in PEDERSEN_INDICES:
+        for name, plane in zip("XYZ", hash_single_batch(vals, i)):
+            out[f"h{i}_{name}"] = np.asarray(plane).astype(np.uint16)
+    np.savez_compressed(os.path.join(HERE, "pedersen_lanes.npz"), **out)
+    print("pedersen_lanes: written", flush=True)
+
+
+SHARDED_FFT_N = 64
+SHARDED_FFT_SEED = 5
+SHARDED_FFT_D = (2, 4)
+
+
+def sharded_fft_coeffs() -> np.ndarray:
+    """(16, SHARDED_FFT_N) uint16 Montgomery limbs of seeded coefficients."""
+    rng = np.random.default_rng(SHARDED_FFT_SEED)
+    r = 1 << 256
+    vals = [int.from_bytes(rng.bytes(32), "little") % FR_MOD * r % FR_MOD
+            for _ in range(SHARDED_FFT_N)]
+    return np.array([[(v >> (16 * i)) & 0xFFFF for v in vals]
+                     for i in range(16)], dtype=np.uint16)
+
+
+def sharded_fft_vectors() -> None:
+    """``sharded_fft.npz``: aztec_tpu's ``sharded_coset_fft`` of
+    ``sharded_fft_coeffs`` over meshes of SHARDED_FFT_D virtual CPU devices
+    (XLA_FLAGS carries the device count: ``main`` sets it before JAX
+    starts)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from aztec_tpu.parallel.sharded_fft import sharded_coset_fft
+    from aztec_tpu.poly.domain import EvaluationDomain
+
+    x = jnp.asarray(sharded_fft_coeffs().astype(np.uint32))
+    out = {}
+    for D in SHARDED_FFT_D:
+        mesh = Mesh(np.array(jax.devices()[:D]), ("dp",))
+        out[f"d{D}"] = np.asarray(sharded_coset_fft(
+            mesh, "dp", x, EvaluationDomain(SHARDED_FFT_N))).astype(np.uint16)
+    np.savez_compressed(os.path.join(HERE, "sharded_fft.npz"), **out)
+    print("sharded_fft: written", flush=True)
+
+
 def record(name: str, c, prover, proof: bytes, producer: str) -> dict:
     """The JSON record of a vector: the keyed composer ``c``, its prover,
     the proof and the package that proved it."""
@@ -755,6 +831,12 @@ def main() -> None:
         card_vectors(args)
         return
 
+    only = set(args)
+    if not only or "sharded_fft" in only:
+        # the virtual devices of the sharded FFT's meshes, before JAX starts
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_"
+            f"device_count={max(SHARDED_FFT_D)}")
     from aztec_tpu.utils import setup_compile_cache
 
     setup_compile_cache()
@@ -771,9 +853,12 @@ def main() -> None:
                           mimc_circuit=mimc_circuit,
                           pedersen=pedersen_circuit,
                           MulTriple=comp.MulTriple, AddTriple=comp.AddTriple)
-    only = set(args)
     if not only or "mont_pow" in only:
         pow_vectors()
+    if not only or "pedersen_lanes" in only:
+        pedersen_vectors()
+    if not only or "sharded_fft" in only:
+        sharded_fft_vectors()
     if not only or "turbo_quotient" in only:
         quotient_vectors()
     if not only or "ultra_quotient" in only:
