@@ -33,6 +33,7 @@ import torch
 
 from ..curves.group_ops import JacobianOps
 from ..curves.spec import CurveSpec
+from ..utils import spans
 from . import glv as glv_mod
 from . import pippenger as pp
 
@@ -172,13 +173,15 @@ def msm_chunked(points, scalars, curve: CurveSpec, *, c: int = 16,
 
     acc = ops.c_infinity((batch * R, nb))
     for base in range(0, full * chunk, chunk):
-        Xc, Yc, Ss = prep(base, base + chunk)
-        digR = torch.cat([digits(sc, c, R) for sc in Ss])
-        acc = chunk_buckets(ops, ops.pack_affine((Xc, Yc)), digR, acc,
-                            n=n_eff, c=c, K=K, rounds=R)
+        with spans.span("msm.chunk"):
+            Xc, Yc, Ss = prep(base, base + chunk)
+            digR = torch.cat([digits(sc, c, R) for sc in Ss])
+            acc = chunk_buckets(ops, ops.pack_affine((Xc, Yc)), digR, acc,
+                                n=n_eff, c=c, K=K, rounds=R)
     if tail:
         Xt, Yt, Ss = prep(total - tail, total)
         acc = tail_buckets(ops, Xt, Yt, torch.cat([digits(sc, c, R)
                                                    for sc in Ss]),
                            acc, c=c, rounds=R)
-    return _finish(ops, acc, R, c, nb, True, batch=batch)
+    with spans.span("msm.finish"):
+        return _finish(ops, acc, R, c, nb, True, batch=batch)

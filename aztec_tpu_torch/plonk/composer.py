@@ -19,6 +19,7 @@ from ..ff import FR, limb
 from ..ff.bn254 import FR_MOD
 from ..numeric.bigint import ints_to_limbs
 from ..srs.reference_string import FakeReferenceStringFactory
+from ..utils import spans
 from . import kernels
 from .manifests import MIMC, STANDARD, TURBO, ULTRA, StandardSettings
 from .proving_key import ProvingKey, VerificationKey, commit_many, ints_to_mont
@@ -213,23 +214,25 @@ class ComposerBase:
         the public input value in w_1 and w_2 (the other wires 0), gates
         follow, zero-pad to the subgroup size.  Every variable is converted
         once; each wire gathers its column of them."""
-        num_pub = len(self.public_inputs)
-        real = self.real_variables()
+        with spans.span("witness.host"):
+            num_pub = len(self.public_inputs)
+            real = self.real_variables()
+            limbs = ints_to_limbs(self.variables + [0]).astype(np.int32)
+            zero = len(self.variables)
+            pub = real[np.asarray(self.public_inputs, dtype=np.int64)]
+            idxs = []
+            for k, wl in enumerate(self._wire_lists()[:width]):
+                idx = np.full(size, zero, np.int64)
+                if k < 2:
+                    idx[:num_pub] = pub
+                idx[num_pub:num_pub + self.n] = real[
+                    np.asarray(wl[:self.n], dtype=np.int64)]
+                idxs.append(idx)
         # most variables are distinct: no deduplication (ints_to_mont)
-        table = limb.to_mont(torch.as_tensor(
-            ints_to_limbs(self.variables + [0]).astype(np.int32),
-            device=self.device), FR)
-        zero = len(self.variables)
-        pub = real[np.asarray(self.public_inputs, dtype=np.int64)]
-        out = {}
-        for k, wl in enumerate(self._wire_lists()[:width]):
-            idx = np.full(size, zero, np.int64)
-            if k < 2:
-                idx[:num_pub] = pub
-            idx[num_pub:num_pub + self.n] = real[
-                np.asarray(wl[:self.n], dtype=np.int64)]
-            out[f"w_{k + 1}"] = table.index_select(
-                1, torch.from_numpy(idx).to(self.device))
+        table = limb.to_mont(torch.as_tensor(limbs, device=self.device), FR)
+        out = {f"w_{k + 1}": table.index_select(
+            1, torch.from_numpy(idx).to(self.device))
+            for k, idx in enumerate(idxs)}
         return out, [self.variables[i] for i in pub.tolist()]
 
     def _wire_lists(self):

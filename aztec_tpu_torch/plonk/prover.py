@@ -25,6 +25,7 @@ from ..poly.arithmetic import (
 )
 from ..poly.domain import powers_table
 from ..transcript.transcript import Transcript
+from ..utils import spans
 from . import kernels
 from .proving_key import ProvingKey, fr_mont
 from .serialize import fr_to_bytes, g1_to_bytes, u32_to_bytes
@@ -346,17 +347,18 @@ class Prover:
         self._commit(w_zeta_omega, "PI_Z_OMEGA")
 
     def construct_proof(self) -> bytes:
-        for rnd in (
-            self.execute_preamble_round,
-            self.execute_first_round,
-            self.execute_second_round,
-            self.execute_third_round,
-            self.execute_fourth_round,
-            self.execute_fifth_round,
-            self.execute_sixth_round,
-        ):
-            rnd()
-            # drain the work queue at the Fiat-Shamir barrier; an external
-            # executor (self.executor) may service FFT/MSM items here
-            self.queue.process_queue(self.executor)
-        return self.transcript.export_transcript()
+        with spans.span("prove"):
+            for rnd in (
+                self.execute_preamble_round,
+                self.execute_first_round,
+                self.execute_second_round,
+                self.execute_third_round,
+                self.execute_fourth_round,
+                self.execute_fifth_round,
+                self.execute_sixth_round,
+            ):
+                rnd()
+                # drain the work queue at the Fiat-Shamir barrier; an external
+                # executor (self.executor) may service FFT/MSM items here
+                self.queue.process_queue(self.executor)
+            return self.transcript.export_transcript()

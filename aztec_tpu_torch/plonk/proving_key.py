@@ -29,6 +29,7 @@ from ..msm.pippenger import msm
 from ..numeric.bigint import ints_to_limbs
 from ..poly import fft_ops as pfft
 from ..poly.domain import EvaluationDomain, mont_plane, powers_table
+from ..utils import spans
 from . import kernels
 from .manifests import StandardSettings, STANDARD
 
@@ -78,12 +79,14 @@ def commit_many(srs, monos) -> list:
 def commit_scalars(srs, scalars) -> list:
     """``commit_many`` of canonical (16, m_i) scalar planes (the work
     queue's MSM items)."""
-    X, Y = srs.get_monomials(max(s.shape[1] for s in scalars))
-    P = msm((X, Y), scalars, BN254_G1)
-    x, y, inf = group.to_affine(P, BN254_G1.field)
-    xs = planes_to_ints(limb.from_mont(x, BN254_G1.field))
-    ys = planes_to_ints(limb.from_mont(y, BN254_G1.field))
-    return [None if f else (a, b) for a, b, f in zip(xs, ys, inf.cpu().tolist())]
+    with spans.span("msm"):
+        X, Y = srs.get_monomials(max(s.shape[1] for s in scalars))
+        P = msm((X, Y), scalars, BN254_G1)
+        x, y, inf = group.to_affine(P, BN254_G1.field)
+        xs = planes_to_ints(limb.from_mont(x, BN254_G1.field))
+        ys = planes_to_ints(limb.from_mont(y, BN254_G1.field))
+        inf = inf.cpu().tolist()
+    return [None if f else (a, b) for a, b, f in zip(xs, ys, inf)]
 
 
 class ProvingKey:

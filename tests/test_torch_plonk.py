@@ -5,12 +5,16 @@ counter rng, must give the proof bytes and VK values that aztec_tpu gave
 for the same circuit and rng (tests/torch_vectors, made by
 make_vectors.py); aztec_tpu's verifier must accept the proof and reject a
 one-byte tamper.  tests/test_torch_plonk_chain.py does the same for a
-2^8-gate chain circuit.
+2^8-gate chain circuit.  The proof is made with the port's spans on: its
+bytes show that the spans change nothing, and its ranges that they nest as
+the prover opens them.
 """
 
+import itertools
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "torch_vectors"))
 import plonk_cases  # noqa: E402
+from aztec_tpu_torch.utils import spans  # noqa: E402
 
 NAME = "standard_drive1"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -31,14 +36,54 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+class _Recorder:
+    """Stands in for ``torch.profiler.record_function`` while the proof
+    runs: each range logs its name, the ticks of its enter and exit, and its
+    thread (tests/test_torch_spans.py shows the real ranges in a session)."""
+    ticks = itertools.count()
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.start = next(self.ticks)
+
+    def __exit__(self, *exc):
+        RANGES.append((self.name, self.start, next(self.ticks),
+                       threading.get_ident()))
+
+
+RANGES = []
+
+
 @pytest.fixture(scope="module")
 def proved():
-    return plonk_cases.prove(NAME)
+    """The proof, made with the port's spans on; their ranges in RANGES."""
+    with pytest.MonkeyPatch.context() as mp, spans.enabled():
+        mp.setattr(torch.profiler, "record_function", _Recorder)
+        return plonk_cases.prove(NAME)
 
 
 def test_proof_bytes_match_reference(proved):
     rec, _ = plonk_cases.load_vector(NAME)
     assert proved[1].hex() == rec["proof"]
+
+
+def test_spans_nest_inside_the_proof(proved):
+    def named(name):
+        return [r for r in RANGES if r[0] == spans.PREFIX + name]
+
+    def inside(a, b):
+        return b[1] <= a[1] and a[2] <= b[2] and a[3] == b[3]
+    prove, = named("prove")
+    # the proof's four MSM drains; the others commit the key (set-up)
+    msms = [m for m in named("msm") if inside(m, prove)]
+    chunks, finishes = named("msm.chunk"), named("msm.finish")
+    assert len(named("witness.host")) == 1 and len(msms) == 4
+    for m in msms:
+        assert sum(inside(f, m) for f in finishes) == 1
+        assert any(inside(c, m) for c in chunks)
+    assert all(any(inside(s, m) for m in named("msm")) for s in chunks + finishes)
 
 
 def test_vk_matches_reference(proved):
