@@ -2,7 +2,8 @@
 
 Port of aztec_tpu/msm/chunked.py.  Per chunk of 2^chunk_log2 points:
 
-  prep     GLV split + endomorphism table + limb-pair packing
+  prep     GLV split + endomorphism table (``glv.glv_table``: one launch of
+           ``csrc/glv.cu`` on the card) + limb-pair packing
   sort1    one stable sort of every round's (digit, source index) pairs
   rake     K-major point gather + the K3 rake kernel over a combined lane
            axis of R * B lanes (round boundaries are lane boundaries)

@@ -7,15 +7,23 @@ phi(x, y) = (beta * x, y).  The split is Babai rounding against a
 Gauss-reduced lattice basis with rectangular schoolbook products on 16-bit
 limb planes and two's-complement fixups, exactly as the reference computes
 it; beta * X goes through the K1 ``mont_mul`` wrapper.
+
+``glv_table`` is the one entry the MSMs call.  For CUDA tensors it is one
+launch of ``csrc/glv.cu`` (``glv_table_kernel``: the split, beta * X and
+the selected -Y of each point in one thread), bit for bit equal to the
+plain composition ``glv_table_plain`` on any 16-bit limbs, which the CPU
+runs.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
+from .. import native
 from ..ff import field_kernels as fk
 from ..ff import limb
 from ..curves.spec import CurveSpec
@@ -264,13 +272,9 @@ def endo_table(points, curve: CurveSpec):
     return fk.mont_mul(X, beta_m, fq)
 
 
-def glv_table(points, scalars, curve: CurveSpec):
-    """Doubled GLV point table + 128-bit scalar planes.
-
-    (X, Y) (L, n) Montgomery affine planes, scalars (16, n) canonical ->
-    ((X', Y') (L, 2n), scalars' (8, 2n)) with
-    sum scalars'_i * P'_i == sum scalars_i * P_i; negative split halves are
-    folded into the table by negating y."""
+def glv_table_plain(points, scalars, curve: CurveSpec):
+    """Plain version of ``glv_table``: the split, the endomorphism X plane,
+    the selects of -Y and the concatenations, as separate torch ops."""
     X, Y = points
     fq = curve.field
     k1a, n1, k2a, n2 = glv_split(scalars, curve)
@@ -282,3 +286,74 @@ def glv_table(points, scalars, curve: CurveSpec):
     Yt = torch.cat([Y1, Y2], dim=-1)
     st = torch.cat([k1a, k2a], dim=-1)
     return (Xt, Yt), st
+
+
+# the kernel's Babai product is kept mod 2^(32 * MAGIC_WORDS), its split
+# workspace is mod 2^(32 * SPLIT_WORDS) (csrc/glv.cu MW, SW)
+MAGIC_WORDS = (_SHIFT + 128) // 32
+SPLIT_WORDS = 16 * _W // 32
+
+
+def _words(v: int, nw: int) -> list:
+    """v mod 2^(32 nw) as nw 32-bit words, least significant first."""
+    v %= 1 << (32 * nw)
+    return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(nw)]
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_consts(curve: CurveSpec) -> ctypes.Array:
+    """The host words ``gv_glv_table`` takes for a curve, in csrc/glv.cu
+    ``GlvConsts`` order: beta in Montgomery form (8), the magics mod 2^544
+    (2 x 17), then A_h = -s_h a_h and B_h = -s_h b_h mod 2^160 (2 x 5
+    each): ``glv_split`` subtracts s_h c_h a_h, which mod 2^160 adds c_h A_h."""
+    P = glv_params(curve)
+    (a1, b1), (a2, b2) = P["basis"]
+    s1, s2 = P["c_signs"]
+    words = _words(curve.field.to_mont_int(P["beta"]), 8)
+    for m in P["magics"]:
+        words += _words(m, MAGIC_WORDS)
+    for coeffs in ((a1, a2), (b1, b2)):
+        for s, v in zip((s1, s2), coeffs):
+            words += _words(-s * v, SPLIT_WORDS)
+    return (ctypes.c_uint32 * len(words))(*words)
+
+
+def glv_table(points, scalars, curve: CurveSpec):
+    """Doubled GLV point table + 128-bit scalar planes.
+
+    (X, Y) (L, n) Montgomery affine planes, scalars (16, n) canonical ->
+    ((X', Y') (L, 2n), scalars' (8, 2n)) with
+    sum scalars'_i * P'_i == sum scalars_i * P_i; negative split halves are
+    folded into the table by negating y.
+
+    ``glv_table_plain`` for CPU tensors; for CUDA tensors one launch of
+    ``gv_glv_table``, which reads (16, n) int32 planes in place at their
+    row strides (a column slice of wider planes as it is) and allocates
+    only the three outputs."""
+    X, Y = points
+    if not any(fk.use_kernels(t) for t in (X, Y, scalars)):
+        return glv_table_plain(points, scalars, curve)
+    n = X.shape[-1]
+    dev = X.device
+    for t in (X, Y, scalars):
+        if t.device != dev or t.dtype != torch.int32 \
+                or tuple(t.shape) != (16, n):
+            raise ValueError(f"glv_table: expected (16, {n}) int32 planes on "
+                             f"{dev}, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+        if n > 1 and t.stride(1) != 1:
+            raise ValueError("glv_table: planes need unit column stride, got "
+                             f"strides {t.stride()}")
+    Xt = torch.empty((16, 2 * n), dtype=torch.int32, device=dev)
+    Yt = torch.empty_like(Xt)
+    St = torch.empty((8, 2 * n), dtype=torch.int32, device=dev)
+    if n:
+        rc = native.library("glv").gv_glv_table(
+            fk.field_id(curve.field), X.data_ptr(), X.stride(0), Y.data_ptr(),
+            Y.stride(0), scalars.data_ptr(), scalars.stride(0), Xt.data_ptr(),
+            Yt.data_ptr(), St.data_ptr(), kernel_consts(curve), n,
+            torch.cuda.current_stream(dev).cuda_stream)
+        native.check(rc, "gv_glv_table")
+        fk.LAUNCHES["glv_table"] += 1
+        fk.ELEMS["glv_table"] += n
+    return (Xt, Yt), St

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build" / "aztec_tpu_torch"
-SOURCES = ("field_ops", "group_ops", "rake", "bucket", "microbench")
+SOURCES = ("field_ops", "group_ops", "rake", "bucket", "glv", "microbench")
 HEADERS = ("field.cuh", "field_lazy.cuh", "group.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
@@ -57,6 +57,10 @@ SIGNATURES = {
     },
     "bucket": {
         "bk_bucket_phase": [_I] + [_P] * 11 + [_I, _I, _I, _P],
+    },
+    "glv": {
+        "gv_glv_table": [_I, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _LL,
+                         _P],
     },
     "microbench": {
         "mb_vpu": [_I, _I, _P, _P, _P, _LL, _I, _P],

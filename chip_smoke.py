@@ -16,8 +16,12 @@ exits non-zero):
    shapes, bit-exact; K1 also on unreduced operands (uniform 16-bit limbs,
    not field elements); K1 ``mont_pow`` (the whole ladder of a power in one
    launch) also on edge lanes (0, 1, p - 1, p, p + 1, 2p - 1, all 0xFFFF)
-   at widths 1 to 2^16 with the exponents p - 2, 2^100, 0 and 1, and K5
-   on edge lanes with points at or above p.  Each path kernel's device time
+   at widths 1 to 2^16 with the exponents p - 2, 2^100, 0 and 1, K5
+   on edge lanes with points at or above p, and the GLV table of an MSM
+   chunk (``csrc/glv.cu``, one launch) on edge scalars (0, 1, r - 1, r,
+   lambda, all 0xFFFF, Babai rounding edges) and edge points (0, p - 1,
+   p, 2p - 1, all 0xFFFF) read as column slices, for BN254 G1 and
+   Grumpkin, at widths 1 to 2^17 + 5.  Each path kernel's device time
    (``tools.timing.device_ms``: 20 calls captured in a CUDA graph, its
    replays between CUDA events, no host time inside), its ``call_ms``
    (CUDA events around wrapper calls, the host's launch cost included) and
@@ -29,9 +33,10 @@ exits non-zero):
    2^16 and 1,024 buckets, the FFT's stage kernel through ``poly.fft`` at
    2^17 and 2^19, 1 to 3 stages a launch), and every K1, K2, rake and K4
    kernel's registers, spill bytes and SASS instructions printed (a
-   redesigned kernel that spills fails the run); every lazily reduced
-   kernel (the K2 adds and doublings, ``jacobian_to_proj``, K3, K5, K4,
-   the FFT's stage kernel) against its plain version on unreduced lanes
+   redesigned kernel or the GLV table that spills fails the run); every
+   lazily reduced kernel (the K2 adds and doublings, ``jacobian_to_proj``,
+   K3, K5, K4, the FFT's stage kernel) and the GLV table against its plain
+   version on unreduced lanes
    (uniform 16-bit limbs, all 0xFFFF, p, p + 1, 2p - 1; in a rake also in
    the middle of runs);
 
@@ -301,6 +306,12 @@ KERNELS = {
     "mont_pow": ("field_ops.cu", "aztec_tpu/ff/pallas_field.py:326 "
                  "(mont_mul), aztec_tpu/ff/limb.py:248 (mont_pow)", 1, 1,
                  (0, 0)),
+    # a fused composition, no Pallas call: X, Y and the scalar in, the two
+    # table planes (2 points each) and the scalar plane (2 x 8 limbs) out;
+    # beta X and the split's 272 word products (544 multiply-add results,
+    # about two Montgomery products), and -Y
+    "glv_table": ("glv.cu", "aztec_tpu/msm/glv.py:297 (glv_table: jnp ops, "
+                  "no Pallas call)", 3, 5, (3, 1)),
     # the microbenchmarks: their tools compute their bounds
     **{f"vpu_{kind}": ("microbench.cu", "tools/vpu_microbench.py:28", 0, 0,
                        (0, 0))
@@ -333,6 +344,7 @@ SYMBOLS = {"mont_mul_kernel": "mont_mul", "add_mod_kernel": "add_mod",
            "rake_packed_exact_kernel": "rake_scan_packed",
            "rake_lazy_kernel": "rake_scan", "rake_exact_kernel": "rake_scan",
            "mont_pow_kernel": "mont_pow",
+           "glv_table_kernel": "glv_table",
            "bucket_lanes_kernel": "bucket_phase",
            "bucket_final_kernel": "bucket_phase",
            # the kernels of an older commit, for a same-card comparison
@@ -365,7 +377,9 @@ REDESIGNED_WIDTHS = {"add_unsafe": K2_ADD_WIDTHS,
                      "mont_pow": (1, 3, 1 << 19),
                      # K5 (B lanes, K steps): the small tier's, then wider
                      "rake_scan": ((128, 32), (1000, 4), (1000, 64),
-                                   (4096 + 5, 4), (4096 + 5, 64))}
+                                   (4096 + 5, 4), (4096 + 5, 64)),
+                     # the GLV table of one MSM's chunk
+                     "glv_table": (1 << 17,)}
 # the edge lanes' widths: a partial last block at every block size
 K2_EDGE_WIDTHS = (1, 3, 33, 8192 + 5, 24576)
 DBL_EDGE_WIDTHS, DBL_EDGE_STEPS = (1, 3, 33, 8192 + 5), (1, 16)
@@ -373,6 +387,9 @@ RAKE_EDGE_B, RAKE_EDGE_K = (1, 33, 128, 4096 + 5), (1, 4, 64)
 K5_EDGE_B, K5_EDGE_K = (1, 127, 128, 1000, 4096 + 5), (1, 4, 32, 64)
 # mont_pow's edge widths, and its exponents beside p - 2: 2^k, 0 and 1
 POW_EDGE_WIDTHS, POW_EDGE_EXPS = (1, 3, 1000, 1 << 16), (1 << 100, 0, 1)
+# the GLV table's edge widths: a chunk's 2^17 points and 5 more, and
+# partial last blocks
+GLV_EDGE_WIDTHS = (1, 33, 8192 + 5, (1 << 17) + 5)
 # exponents 2^64 and 2^192 at width 1: their times' difference over 128
 # is the latency of one lazy product, the chain's step
 POW_LATENCY_EXPS = (1 << 64, 1 << 192)
@@ -396,11 +413,11 @@ PRODUCTS = {"add_unsafe_kernel": 16, "proj_add_kernel": 12,
 REDESIGNED_SYMBOLS = ("add_unsafe_kernel", "proj_add_kernel",
                       "rake_packed_kernel", "proj_dbl_n_kernel",
                       "fft_stages_kernel", "rake_lazy_kernel",
-                      "mont_pow_kernel")
+                      "mont_pow_kernel", "glv_table_kernel")
 # the libraries whose kernels' registers, spills and SASS the redesigned
 # phase prints (K4 calls its formulas out of line: its stack holds the
 # calls' frames, so it is printed and not held to zero)
-REDESIGNED_LIBS = ("group_ops", "rake", "bucket", "field_ops")
+REDESIGNED_LIBS = ("group_ops", "rake", "bucket", "field_ops", "glv")
 
 # The main path's widest work-queue barrier: the three wire (or the three
 # quotient) commitments of the 2^17 proof run as one batch of MSMs over one
@@ -652,6 +669,74 @@ def check_mont_pow_edges(gen, device) -> None:
         f"{list(POW_EDGE_WIDTHS)}, e = p - 2, 2^100, 0, 1: max_abs_err=0")
 
 
+def glv_flat(table):
+    """glv_table's ((Xt, Yt), St) as the flat tuple (Xt, Yt, St)."""
+    (Xt, Yt), St = table
+    return Xt, Yt, St
+
+
+def glv_edge_case(gen, curve, w: int, device):
+    """(X, Y, S) (16, w + 7) planes for the GLV table, read as the column
+    slice 3 .. 3 + w: scalar lanes cycle through 0, 1, r - 1, r, lambda,
+    2^256 - 1 (all 0xFFFF), both sides of Babai rounding edges of each
+    magic (the k where c_h steps up), a random value below r and uniform
+    16-bit limbs; X and Y lanes, out of step, through 0, p - 1, p, 2p - 1,
+    all 0xFFFF, a canonical element and uniform limbs."""
+    import numpy as np
+    import torch
+
+    from aztec_tpu_torch.msm import glv
+    from aztec_tpu_torch.numeric.bigint import ints_to_limbs
+
+    P, r, p = glv.glv_params(curve), curve.order, curve.field.modulus
+    ks = [0, 1, r - 1, r, P["lam"], (1 << 256) - 1]
+    for m in P["magics"]:
+        top = (m * r) >> 416
+        for c in (1, top // 3, top - 1):
+            edge = -(-((2 * c + 1) << 415) // m)
+            ks += [edge, edge - 1]
+
+    def lanes(special, shift, below):
+        x = torch.randint(0, 1 << 16, (16, w + 7), generator=gen,
+                          dtype=torch.int32, device=device)
+        sp = torch.as_tensor(ints_to_limbs(special).astype(np.int32),
+                             device=device)
+        lane = (torch.arange(w + 7, device=device) + shift) % (len(special)
+                                                               + 2)
+        x[15] = torch.where(lane == len(special), x[15] % (below >> 240),
+                            x[15])
+        pick = lane < len(special)
+        x[:, pick] = sp[:, lane[pick]]
+        return x
+
+    pts = [0, p - 1, p, 2 * p - 1, (1 << 256) - 1]
+    return lanes(pts, 0, p), lanes(pts, 2, p), lanes(ks, 0, r)
+
+
+def check_glv_table_edges(gen, device) -> None:
+    """``glv.glv_table`` (one launch of csrc/glv.cu) against
+    ``glv_table_plain``, bit for bit, on ``glv_edge_case`` at every width
+    of GLV_EDGE_WIDTHS, for BN254 G1 (Fq) and Grumpkin (Fr), each input a
+    column slice of wider planes, as the chunked MSM passes it."""
+    from aztec_tpu_torch.curves.spec import BN254_G1, GRUMPKIN_G1
+    from aztec_tpu_torch.msm import glv
+
+    for curve in (BN254_G1, GRUMPKIN_G1):
+        for w in GLV_EDGE_WIDTHS:
+            X, Y, S = glv_edge_case(gen, curve, w, device)
+            args = ((X[:, 3:3 + w], Y[:, 3:3 + w]), S[:, 3:3 + w], curve)
+            if max_abs_err(glv_flat(glv.glv_table(*args)),
+                           glv_flat(glv.glv_table_plain(*args))):
+                raise AssertionError(
+                    f"glv_table ({curve.field.name}, width {w}) differs from "
+                    "its plain version on the edge lanes")
+    log(f"kernel glv_table: edge lanes (scalars 0, 1, r - 1, r, lambda, all "
+        f"0xFFFF, Babai rounding edges, random, uniform limbs; X, Y 0, "
+        f"p - 1, p, 2p - 1, all 0xFFFF, canonical, uniform limbs), column "
+        f"slices, BN254 G1 and Grumpkin, widths {list(GLV_EDGE_WIDTHS)}: "
+        "max_abs_err=0")
+
+
 def unreduced_lanes(gen, spec, w: int, device, canonical_from=None):
     """(16, w) planes of uniform 16-bit limbs (most lanes >= p); lanes 0-5
     all 0xFFFF, p, p + 1, 2p - 1, 1 and 0 (a Z of 0); lanes from
@@ -769,6 +854,16 @@ def check_unreduced_lazy(gen, dev) -> list:
         same(f"mont_pow ({spec.name}, e = p - 2, {w} lanes)",
              fk.mont_pow(x, bits, spec),
              limb.mont_pow_plain(x, bits, spec))
+    from aztec_tpu_torch.msm import glv
+
+    for curve in (BN254_G1, GRUMPKIN_G1) if hasattr(glv, "glv_table_plain") \
+            else ():
+        spec = curve.field
+        X, Y = (unreduced_lanes(gen, spec, w, dev, w // 2) for _ in range(2))
+        S = unreduced_lanes(gen, FR if spec is FQ else FQ, w, dev)
+        same(f"glv_table ({spec.name}, {w} lanes)",
+             glv_flat(glv.glv_table((X, Y), S, curve)),
+             glv_flat(glv.glv_table_plain((X, Y), S, curve)))
     b = BN254_G1.b
     plain_ops = bucket.PlainOps(FQ, b, dev)
     for nb, steps in ((1024, 0), (1 << 16, WINDOW)):
@@ -935,7 +1030,8 @@ def fft_bound_ms(n: int, rate: float):
 
 def check_new_kernels(results: dict, rate: float) -> None:
     """Phase 2, the later slices' kernels (K4, K5, K2 proj_dbl, K1 mul_add
-    and mont_pow) vs their plain versions at their paths' shapes."""
+    and mont_pow, the GLV table) vs their plain versions at their paths'
+    shapes."""
     import functools
 
     import torch
@@ -1019,6 +1115,16 @@ def check_new_kernels(results: dict, rate: float) -> None:
     record_("mont_pow", lambda: fk.mont_pow(x1, exp_bits(e), FQ),
             lambda: limb.mont_pow_plain(x1, exp_bits(e), FQ), 1,
             products=(ladder_products(e), 0))
+
+    # the GLV table of one MSM's chunk (2^17 points), its inputs a column
+    # slice of wider planes, as the chunked MSM's prep passes them
+    from aztec_tpu_torch.msm import glv
+
+    w = 1 << 17
+    X, Y, S = (random_field(gen, (2 * w,), dev) for _ in range(3))
+    args = ((X[:, w:], Y[:, w:]), S[:, w:], BN254_G1)
+    record_("glv_table", lambda: glv_flat(glv.glv_table(*args)),
+            lambda: glv_flat(glv.glv_table_plain(*args)), w)
 
 
 def edge_points(gen, w: int, spec, device):
@@ -1129,7 +1235,8 @@ def check_redesigned_edges(device: str = "cuda") -> None:
     for every B of RAKE_EDGE_B and K of RAKE_EDGE_K, K5 on
     ``k5_edge_case`` for every B of K5_EDGE_B and K of K5_EDGE_K, Fr and
     Fq, and (where the package has it) K1 mont_pow on its edge lanes
-    (``check_mont_pow_edges``)."""
+    (``check_mont_pow_edges``) and the GLV table on its own
+    (``check_glv_table_edges``)."""
     import torch
 
     from aztec_tpu_torch.curves import group
@@ -1187,9 +1294,12 @@ def check_redesigned_edges(device: str = "cuda") -> None:
         f"lanes in n-order with points at or above p, B in "
         f"{list(K5_EDGE_B)}, K in {list(K5_EDGE_K)}: max_abs_err=0")
     from aztec_tpu_torch.ff import field_kernels as fk
+    from aztec_tpu_torch.msm import glv
 
     if hasattr(fk, "mont_pow"):
         check_mont_pow_edges(gen, device)
+    if hasattr(glv, "glv_table_plain"):
+        check_glv_table_edges(gen, device)
 
 
 def redesigned_resources() -> dict:
@@ -1200,10 +1310,11 @@ def redesigned_resources() -> dict:
     of PRODUCTS also the IMAD-class instructions a Montgomery product.  A
     kernel of REDESIGNED_SYMBOLS that spills is listed under "spills".
     Returns {(kernel, template args): numbers, "spills": [kernel, ...]}."""
+    from aztec_tpu_torch import native
     from aztec_tpu_torch.tools import sass
 
     out, spills = {}, []
-    for lib in REDESIGNED_LIBS:
+    for lib in (x for x in REDESIGNED_LIBS if x in native.SOURCES):
         res, code = sass.resources(lib), sass.kernels(lib)
         for key in sorted(code):
             r, k = res[key], code[key]
@@ -1296,6 +1407,15 @@ def time_redesigned(rate: float) -> dict:
             yield f"{n} s={st}", kern, (lambda: want), n
 
     def calls(name, w):
+        if name == "glv_table":
+            from aztec_tpu_torch.msm import glv
+
+            if not hasattr(glv, "glv_table_plain"):
+                return []
+            X, Y, S = (random_field(gen, (2 * w,), "cuda") for _ in range(3))
+            args = ((X[:, w:], Y[:, w:]), S[:, w:], BN254_G1)
+            return [(w, lambda: glv_flat(glv.glv_table(*args)),
+                     lambda: glv_flat(glv.glv_table_plain(*args)), w)]
         if name == "mont_pow":
             x = random_field(gen, (w,), "cuda")
             bits = exp_bits(FQ.modulus - 2)
@@ -1376,7 +1496,7 @@ def time_redesigned(rate: float) -> dict:
                 ms = timing.device_ms(kern)
                 cms, got = timing.call_ms(kern)
                 if (name in ("rake_scan_packed", "butterfly", "rake_scan",
-                             "mont_pow") or w < 1 << 16):
+                             "mont_pow", "glv_table") or w < 1 << 16):
                     want = plain()
                     if want is not None and max_abs_err(got, want):
                         raise AssertionError(f"{name} differs at width {key}")
@@ -1390,6 +1510,8 @@ def time_redesigned(rate: float) -> dict:
                 elif name == "rake_scan":
                     bnd = bound_ms(name, elems, rate, nbytes=elems * (
                         4 + 2 * PLANE_BYTES + 3 * PLANE_BYTES))
+                elif name == "glv_table":
+                    bnd = bound_ms(name, w, rate)
                 elif name == "mont_pow":
                     nprod = ladder_products(FQ.modulus - 2)
                     bnd = bound_ms(name, w, rate, products=(nprod * w, 0))

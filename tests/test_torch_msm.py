@@ -272,6 +272,168 @@ def test_glv_split_matches_reference():
         assert (k1, k2) == jglv.split_scalar_host(k, JG1)
 
 
+M32 = (1 << 32) - 1
+
+
+def _glv_kernel_split(limbs, consts):
+    """csrc/glv.cu's split of one scalar (16 limbs of 16 bits), word for
+    word as ``glv_table_kernel`` orders it: each Babai product k m_h kept
+    mod 2^544 a row of 32 x 32-bit products at a time, + 2^415 at bit 31 of
+    word 12, c_h = words 13-16; k1 = k + c_1 A_1 + c_2 A_2 and k2 = c_1 B_1
+    + c_2 B_2 in five words (mod 2^160), each term a row a word of c_h;
+    then bit 159 and the low 128 bits of the magnitude.  ``consts`` are
+    ``glv.kernel_consts``.  Returns (|k1| limbs, neg1, |k2| limbs, neg2, c)."""
+    mw, sw = glv.MAGIC_WORDS, glv.SPLIT_WORDS
+    k = [(limbs[2 * i] & 0xFFFF) | (limbs[2 * i + 1] << 16) for i in range(8)]
+    rest = list(consts[8:])
+    magic = [rest[:mw], rest[mw:2 * mw]]
+    coef = [rest[2 * mw + i * sw:2 * mw + (i + 1) * sw] for i in range(4)]
+    c = []
+    for h in range(2):
+        t = [0] * mw
+        for i in range(8):
+            carry = 0
+            for w in range(mw - i):
+                s = k[i] * magic[h][w] + t[i + w] + carry
+                assert s <= (1 << 64) - 1
+                t[i + w], carry = s & M32, s >> 32
+        carry = (t[12] + 0x80000000) >> 32
+        ch = []
+        for w in range(4):
+            s = t[13 + w] + carry
+            ch.append(s & M32)
+            carry = s >> 32
+        c.append(ch)
+
+    def mac(acc, ch, a):
+        for i in range(4):
+            carry = 0
+            for j in range(sw - i):
+                s = ch[i] * a[j] + acc[i + j] + carry
+                assert s <= (1 << 64) - 1
+                acc[i + j], carry = s & M32, s >> 32
+
+    k1, k2 = k[:sw], [0] * sw
+    for h in range(2):
+        mac(k1, c[h], coef[h])
+        mac(k2, c[h], coef[2 + h])
+
+    def abs128(v):
+        neg = v[sw - 1] >> 31
+        carry, mag = 1, []
+        for w in range(4):
+            s = (~v[w] & M32) + carry
+            carry = s >> 32
+            mag.append(s & M32 if neg else v[w])
+        return [x for w in mag for x in (w & 0xFFFF, w >> 16)], bool(neg)
+
+    return (*abs128(k1), *abs128(k2),
+            [sum(w << (32 * i) for i, w in enumerate(ch)) for ch in c])
+
+
+def _glv_edge_scalars(curve, count, seed):
+    """Scalars 0, 1, r - 1, r, lambda, 2^256 - 1 (all 0xFFFF limbs), both
+    sides of a Babai rounding edge of each magic (the k where c_h steps
+    up: (2c + 1) 2^415 / m_h, rounded up, and one below), then random
+    values below r and below 2^256 (the edges lie below r)."""
+    P = glv.glv_params(curve)
+    r = curve.order
+    rng = random.Random(seed)
+    ks = [0, 1, r - 1, r, P["lam"], (1 << 256) - 1]
+    for m in P["magics"]:
+        top = (m * r) >> 416          # c_h of a k just below r
+        for c in (1, rng.randrange(1, top), top - 1):
+            edge = -(-((2 * c + 1) << 415) // m)
+            ks += [edge, edge - 1]
+    while len(ks) < count:
+        ks.append(rng.randrange(r) if len(ks) % 2 else
+                  rng.randrange(1 << 256))
+    return ks
+
+
+@pytest.mark.parametrize("curve", [BN254_G1, GRUMPKIN_G1],
+                         ids=["bn254", "grumpkin"])
+def test_glv_kernel_split_model_matches_plain(curve):
+    """The word-level model of the kernel's split equals ``glv_split`` limb
+    for limb on the edge scalars (at and above r too), its c_h equals
+    ((k m_h + 2^415) >> 416) mod 2^128, and below r the signed halves equal
+    ``split_scalar_host``'s."""
+    P = glv.glv_params(curve)
+    consts = glv.kernel_consts(curve)
+    assert len(consts) == 8 + 2 * glv.MAGIC_WORDS + 4 * glv.SPLIT_WORDS
+    ks = _glv_edge_scalars(curve, 96, 43)
+    S = ints_to_limbs(ks)
+    k1a, n1, k2a, n2 = glv.glv_split(torch.from_numpy(S.astype(np.int32)),
+                                     curve)
+    for i, k in enumerate(ks):
+        a1, neg1, a2, neg2, c = _glv_kernel_split(
+            [int(v) for v in S[:, i]], consts)
+        assert c == [((k * m + (1 << 415)) >> 416) % (1 << 128)
+                     for m in P["magics"]]
+        assert a1 == k1a[:, i].tolist() and neg1 == bool(n1[i])
+        assert a2 == k2a[:, i].tolist() and neg2 == bool(n2[i])
+        if k < curve.order:
+            v1 = sum(x << (16 * j) for j, x in enumerate(a1))
+            v2 = sum(x << (16 * j) for j, x in enumerate(a2))
+            assert ((-v1 if neg1 else v1, -v2 if neg2 else v2)
+                    == glv.split_scalar_host(k, curve))
+
+
+def test_glv_table_on_cpu_runs_plain():
+    """On CPU tensors ``glv_table`` is ``glv_table_plain`` and launches
+    nothing."""
+    n = 40
+    X, Y = (torch.from_numpy(a[:, :n]) for a in _table(n))
+    S = torch.from_numpy(ints_to_limbs(_glv_edge_scalars(BN254_G1, n, 44))
+                         .astype(np.int32))
+    before = dict(fk.LAUNCHES)
+    (Xt, Yt), St = glv.glv_table((X, Y), S, BN254_G1)
+    assert dict(fk.LAUNCHES) == before
+    (Xp, Yp), Sp = glv.glv_table_plain((X, Y), S, BN254_G1)
+    for a, b in ((Xt, Xp), (Yt, Yp), (St, Sp)):
+        assert torch.equal(a, b)
+
+
+def _glv_edge_points(spec, w, seed):
+    """(X, Y) (16, w) planes whose lanes cycle through 0, p - 1, p, 2p - 1,
+    all 0xFFFF and a canonical random element, X and Y out of step."""
+    rng = random.Random(seed)
+    p = spec.modulus
+    edge = [0, p - 1, p, 2 * p - 1, (1 << 256) - 1]
+
+    def plane(shift):
+        return ints_to_limbs([edge[(i + shift) % 6] if (i + shift) % 6 < 5
+                              else rng.randrange(p) for i in range(w)])
+
+    return (torch.from_numpy(plane(0).astype(np.int32)),
+            torch.from_numpy(plane(2).astype(np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 33, 8192 + 5, (1 << 17) + 5])
+@pytest.mark.parametrize("curve", [BN254_G1, GRUMPKIN_G1],
+                         ids=["bn254", "grumpkin"])
+def test_glv_table_kernel_matches_plain_on_card(curve, w):
+    """One launch of ``glv_table_kernel`` equals ``glv_table_plain`` on
+    every output plane, bit for bit, on the edge scalars and the edge
+    points (0, p - 1, p, 2p - 1, all 0xFFFF), read as a column slice of
+    wider planes as the chunked MSM's ``prep`` passes it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    X, Y = _glv_edge_points(curve.field, w + 7, 45)
+    S = torch.from_numpy(ints_to_limbs(_glv_edge_scalars(curve, w + 7, 46))
+                         .astype(np.int32))
+    X, Y, S = (t.cuda() for t in (X, Y, S))
+    lo, hi = 3, 3 + w
+    pts, sc = (X[:, lo:hi], Y[:, lo:hi]), S[:, lo:hi]
+    before = fk.LAUNCHES["glv_table"]
+    (Xt, Yt), St = glv.glv_table(pts, sc, curve)
+    assert fk.LAUNCHES["glv_table"] == before + 1
+    (Xp, Yp), Sp = glv.glv_table_plain(pts, sc, curve)
+    for a, b in ((Xt, Xp), (Yt, Yp), (St, Sp)):
+        assert a.dtype == b.dtype and torch.equal(a, b.to(a.dtype))
+
+
 @pytest.mark.parametrize("n,tail", [(1 << 20, 0), ((1 << 17) + 1, 1),
                                     (259, 3), (300, 0), (16, 0), (1, 0)])
 def test_geometry(n, tail):
