@@ -89,18 +89,40 @@ def _selector_rows(c: Circuit, name: str, n: int) -> list:
     return [0] * pub + [v % R for v in gates] + [0] * (n - 1 - pub - len(gates)) + [1]
 
 
+def _slot_classes(c: Circuit) -> np.ndarray:
+    """Each slot's copy class (its real variable): the public-input slots
+    (columns 0 and 1 of their rows) first, then the gate slots row by row."""
+    width = WIDTH[c.flavor]
+    real = np.asarray(c.real, dtype=np.int64)
+    return np.concatenate([np.repeat(real[np.asarray(c.public_inputs, dtype=np.int64)], 2),
+                           real[np.stack([np.asarray(w, dtype=np.int64)
+                                          for w in c.wires[:width]], axis=1)].reshape(-1)])
+
+
+def shape(c: Circuit) -> tuple:
+    """What one key fixes of a circuit: its flavour, its public inputs'
+    count, its selectors, and its copy cycles, each slot named by the first
+    slot of its cycle (so the variables' numbering does not matter)."""
+    _, first, inverse = np.unique(_slot_classes(c), return_index=True,
+                                  return_inverse=True)
+    return (c.flavor, len(c.public_inputs),
+            [c.selectors[name] for name in SELECTORS[c.flavor]],
+            first[inverse.reshape(-1)])
+
+
+def same_shape(a: tuple, b: tuple) -> bool:
+    return a[:3] == b[:3] and np.array_equal(a[3], b[3])
+
+
 def _sigma_rows(c: Circuit, n: int, omega: list) -> list:
     """sigma_1 .. sigma_width as evaluations on the subgroup (not reduced
     mod r: each is omega^row times a small k)."""
     width = WIDTH[c.flavor]
     pub = len(c.public_inputs)
     gates = len(c.wires[0])
-    real = np.asarray(c.real, dtype=np.int64)
     # the slots in cycle order: by copy class, the public-input slots first,
     # then the gate slots row by row (a stable sort keeps that order)
-    keys_ = np.concatenate([np.repeat(real[np.asarray(c.public_inputs, dtype=np.int64)], 2),
-                            real[np.stack([np.asarray(w, dtype=np.int64)
-                                           for w in c.wires[:width]], axis=1)].reshape(-1)])
+    keys_ = _slot_classes(c)
     rows = np.concatenate([np.repeat(np.arange(pub), 2),
                            np.repeat(np.arange(pub, pub + gates), width)])
     cols = np.concatenate([np.tile([0, 1], pub), np.tile(np.arange(width), gates)])

@@ -1,6 +1,15 @@
 """barretenberg's PLONK verifier for the Standard and Turbo flavours with the
-Keccak transcript (plonk/proof_system/verifier/verifier.cpp, the widgets'
-verifier terms, kate_commitment_scheme.cpp batch_verify), in plain Python.
+Keccak transcript, and for unrolled Turbo with the Pedersen-Blake2s one
+(plonk/proof_system/verifier/verifier.cpp under the standard, turbo and
+unrolled_turbo settings, the widgets' verifier terms,
+kate_commitment_scheme.cpp batch_verify), in plain Python.
+
+A linearised proof opens r(zeta) and the polynomials the linearisation
+leaves out; its key's selectors, Z and sigma_last enter the batch opening
+through r's multiplicands.  An unrolled proof opens every polynomial: t(zeta)
+takes the permutation's Z and sigma_last terms and every widget's selector
+terms from their evaluations, and the batch opening takes each polynomial
+by its own nu.
 
 The last step differs in form only.  barretenberg checks
 e(P0, [1]_2) * e(P1, [x]_2) == 1 with a pairing; the benchmark's reference
@@ -15,7 +24,8 @@ import dataclasses
 
 from . import bn254
 from .bn254 import COSET, EXTERNAL_COSET, R
-from .transcript import Transcript, standard_manifest, turbo_manifest
+from .transcript import (KECCAK, PEDERSEN_BLAKE2S, Hash, Transcript, standard_manifest,
+                         turbo_manifest, unrolled_turbo_manifest)
 
 ROOTS_CUT = 4   # num_roots_cut_out_of_vanishing_polynomial
 
@@ -77,16 +87,21 @@ def _perm_linear(ev, ch, l_start, width):
     return z_mult, -(s * ev["z_omega"] * alpha * beta) % R
 
 
-def _perm_t(ev, ch, l_start, l_end, delta, width):
-    """The permutation widget's part of t(zeta), r(zeta) included."""
+def _perm_t(ev, ch, l_start, l_end, delta, width, linearised):
+    """The permutation widget's part of t(zeta): r(zeta) added where the
+    proof is linearised, else the Z and sigma_last terms from their
+    evaluations."""
     alpha, beta, gamma = ch["alpha"], ch["beta"], ch["gamma"]
     s = 1
     for i in range(width - 1):
         s = s * (ev[f"sigma_{i + 1}"] * beta + ev[f"w_{i + 1}"] + gamma) % R
     s = s * (ev[f"w_{width}"] + gamma) * ev["z_omega"] * alpha % R
     a2 = alpha * alpha % R
-    return ((ev["z_omega"] - delta) * l_end * a2 - l_start * a2 * alpha - s
-            + ev["r"]) % R
+    t = (ev["z_omega"] - delta) * l_end * a2 - l_start * a2 * alpha - s
+    if linearised:
+        return (t + ev["r"]) % R
+    z_mult, sigma_mult = _perm_linear(ev, ch, l_start, width)
+    return (t + z_mult * ev["z"] + sigma_mult * ev[f"sigma_{width}"]) % R
 
 
 def _standard_linear(ev, ch):
@@ -171,12 +186,27 @@ class Flavor:
     polys: tuple
     linear: object
     nonlinear: object
+    linearised: bool = True
+    hash: Hash = KECCAK
+
+    def opens(self, p: Poly) -> bool:
+        """Whether the proof carries p's evaluation at zeta."""
+        return not (self.linearised and p.linearised)
 
 
 STANDARD = Flavor(3, standard_manifest, STANDARD_POLYS, _standard_linear,
                   lambda ev, ch: 0)
 TURBO = Flavor(4, turbo_manifest, TURBO_POLYS, _turbo_linear, _turbo_nonlinear)
-FLAVORS = {"standard": STANDARD, "turbo": TURBO}
+UNROLLED_TURBO = Flavor(4, unrolled_turbo_manifest, TURBO_POLYS, _turbo_linear,
+                        _turbo_nonlinear, linearised=False, hash=PEDERSEN_BLAKE2S)
+FLAVORS = {("standard", "keccak256"): STANDARD, ("turbo", "keccak256"): TURBO,
+           ("turbo", "pedersen_blake2s"): UNROLLED_TURBO}
+
+
+def for_config(config: dict) -> Flavor:
+    """The verifier a configuration's ``flavor`` and ``transcript`` name."""
+    return FLAVORS[config["flavor"], config["transcript"]]
+
 
 LABELS = {"q_m": "Q_M", "q_1": "Q_1", "q_2": "Q_2", "q_3": "Q_3", "q_4": "Q_4",
           "q_5": "Q_5", "q_c": "Q_C", "q_arith": "Q_ARITHMETIC_SELECTOR",
@@ -186,7 +216,7 @@ LABELS = {"q_m": "Q_M", "q_1": "Q_1", "q_2": "Q_2", "q_3": "Q_3", "q_4": "Q_4",
 
 def public_inputs(proof: bytes, flavor: Flavor, num_public: int) -> list:
     """The public inputs a proof carries (the first round's element)."""
-    t = Transcript(flavor.manifest(num_public), proof)
+    t = Transcript(flavor.manifest(num_public), proof, flavor.hash)
     b = t.elements["public_inputs"]
     return [int.from_bytes(b[i:i + 32], "big") for i in range(0, len(b), 32)]
 
@@ -204,7 +234,7 @@ def verify(proof: bytes, flavor: Flavor, n: int, num_public: int,
 
 def _verify(proof, flavor, n, num_public, commitments, tau) -> bool:
     width = flavor.width
-    t = Transcript(flavor.manifest(num_public), proof)
+    t = Transcript(flavor.manifest(num_public), proof, flavor.hash)
     t.elements["circuit_size"] = n.to_bytes(4, "big")
     t.elements["public_input_size"] = num_public.to_bytes(4, "big")
     for name in ("init", "eta", "beta", "alpha", "z"):
@@ -227,11 +257,12 @@ def _verify(proof, flavor, n, num_public, commitments, tau) -> bool:
 
     ev = {}
     for p in flavor.polys:
-        if not p.linearised:
+        if flavor.opens(p):
             ev[p.label] = t.fr(p.label)
         if p.shifted:
             ev[p.label + "_omega"] = t.fr(p.label + "_omega")
-    ev["r"] = t.fr("r")
+    if flavor.linearised:
+        ev["r"] = t.fr("r")
 
     pub = t.elements["public_inputs"]
     inputs = [int.from_bytes(pub[i:i + 32], "big") % R
@@ -244,8 +275,11 @@ def _verify(proof, flavor, n, num_public, commitments, tau) -> bool:
         wr = wr * root % R
     delta = num_d * pow(den_d, -1, R) % R
 
-    t_eval = (_perm_t(ev, ch, l_start, l_end, delta, width)
-              + flavor.nonlinear(ev, ch)) * pow(vanishing, -1, R) % R
+    t_eval = (_perm_t(ev, ch, l_start, l_end, delta, width, flavor.linearised)
+              + flavor.nonlinear(ev, ch))
+    if not flavor.linearised:
+        t_eval += sum(s * ev[label] for label, s in flavor.linear(ev, ch).items())
+    t_eval = t_eval * pow(vanishing, -1, R) % R
     t.elements["t"] = bn254.fr_bytes(t_eval)
     t.apply_fiat_shamir("nu")
     t.apply_fiat_shamir("separator")
@@ -266,7 +300,7 @@ def _verify(proof, flavor, n, num_public, commitments, tau) -> bool:
             c = t.nu(p.label + "_omega")
             s += sep * c
             batch_eval += sep * c * ev[p.label + "_omega"]
-        if not p.linearised:
+        if flavor.opens(p):
             c = t.nu(p.label)
             s += c
             batch_eval += c * ev[p.label]
@@ -281,17 +315,18 @@ def _verify(proof, flavor, n, num_public, commitments, tau) -> bool:
             return False
         points[label] = pt
         scalars[label] = nu_t * pow(z_n, i, R) % R
-    batch_eval = (batch_eval + t.nu("r") * ev["r"] + t_eval * nu_t) % R
+    batch_eval = (batch_eval + t_eval * nu_t) % R
+    if flavor.linearised:
+        nu_r = t.nu("r")
+        batch_eval = (batch_eval + nu_r * ev["r"]) % R
+        z_mult, sigma_mult = _perm_linear(ev, ch, l_start, width)
+        scalars["Z"] = (scalars["Z"] + z_mult * nu_r) % R
+        last = f"SIGMA_{width}"
+        scalars[last] = (scalars[last] + sigma_mult * nu_r) % R
+        for label, s in flavor.linear(ev, ch).items():
+            scalars[LABELS[label]] = (scalars[LABELS[label]] + s * nu_r) % R
     points["BATCH_EVALUATION"] = bn254.G1
     scalars["BATCH_EVALUATION"] = -batch_eval % R
-
-    nu_r = t.nu("r")
-    z_mult, sigma_mult = _perm_linear(ev, ch, l_start, width)
-    scalars["Z"] = (scalars["Z"] + z_mult * nu_r) % R
-    last = f"SIGMA_{width}"
-    scalars[last] = (scalars[last] + sigma_mult * nu_r) % R
-    for label, s in flavor.linear(ev, ch).items():
-        scalars[LABELS[label]] = (scalars[LABELS[label]] + s * nu_r) % R
 
     ok_z, pi_z = bn254.g1_from_bytes(t.elements["PI_Z"])
     ok_w, pi_zw = bn254.g1_from_bytes(t.elements["PI_Z_OMEGA"])

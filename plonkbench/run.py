@@ -6,13 +6,19 @@ from the root of a checkout, on a machine with the cell's NVIDIA cards.  A
 run sets up (imports, the configuration's circuit from the seed, the proving
 and verification keys, the mix's warm-up proofs), then serves the traffic mix
 for ``--seconds``: each request calls the composer's ``create_prover()`` (the
-witness planes) and ``construct_proof()`` with the prover's random source
-drawn from the seed and the request's index, and ends with the proof's bytes
-on the host.  Once the window has closed and the device's peak memory is
-read, the plain reference (``reference/``) works out the verification key
-from the circuit's gates and checks every proof of the window: that it
-verifies, that it carries the circuit's public inputs, and that its wire
-commitments are those of the witness under its own request's blinding.
+witness planes; ``create_unrolled_prover()`` where the configuration's
+``prover`` is ``unrolled``) and ``construct_proof()`` with the prover's random
+source drawn from the seed and the request's index, and ends with the proof's
+bytes on the host.  Where the configuration's circuit module draws an input
+for each request (``circuits/``), the request's input is drawn before its
+clock starts and the drawing's seconds are left out of the window; the
+request then builds its own circuit and proving key before its prover.
+Once the window has closed and the device's peak memory is read, the plain
+reference (``reference/``) works out the verification key from the set-up
+circuit's gates and checks every proof of the window: that it verifies, that
+it carries its request's public inputs, that its wire commitments are those
+of its own witness under its own request's blinding, and that its circuit
+has the set-up circuit's selectors and copy cycles.
 
 The last line of standard output is one JSON object (``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1`` also
@@ -137,14 +143,18 @@ def msm_span():
         proving_key.commit_scalars = original
 
 
-def serve(composer, rng, spans: Spans | None = None) -> bytes:
+def prover_method(config: dict) -> str:
+    return "create_unrolled_prover" if config.get("prover") == "unrolled" else "create_prover"
+
+
+def serve(composer, rng, spans: Spans | None = None, make: str = "create_prover") -> bytes:
     """One request: the witness planes, then the proof's bytes."""
     if spans is None:
-        prover = composer.create_prover()
+        prover = getattr(composer, make)()
         prover.rng = rng
         return prover.construct_proof()
     spans.start("witness")
-    prover = composer.create_prover()
+    prover = getattr(composer, make)()
     spans.stop()
     for r in ROUNDS:
         method = getattr(prover, f"execute_{r}_round")
@@ -159,6 +169,19 @@ def serve(composer, rng, spans: Spans | None = None) -> bytes:
     for r in ROUNDS:   # the wrappers refer to the prover: free it with the frame
         delattr(prover, f"execute_{r}_round")
     return proof
+
+
+def serve_input(circuit, config: dict, tx, device: str, setup, rng,
+                spans: Spans | None = None) -> tuple:
+    """One request that carries its own input: its circuit, its proving
+    key, then its proof.  Returns (proof bytes, the request's composer)."""
+    if spans is not None:
+        spans.start("circuit")
+    composer = circuit.build_request(config, tx, device, setup)
+    if spans is not None:
+        spans.start("key")
+    composer.compute_proving_key()
+    return serve(composer, rng, spans, prover_method(config)), composer
 
 
 def nearest_rank(values: list, q: float) -> float:
@@ -192,39 +215,53 @@ def card() -> str:
 
 def check_proofs(config, seed: int, composer, vk, records: list) -> dict:
     """The plain reference's comparison, after the window: counts that are
-    each held to the limit 0.  Marks each record's ``ok``."""
+    each held to the limit 0.  Marks each record's ``ok``.  A record that
+    carries its own ``circuit`` and ``public`` inputs is held to them;
+    every other to the set-up circuit's."""
     mod = importlib.import_module(f"plonkbench.circuits.{config['circuit']}")
     ref = mod.reference(config, seed, composer)
-    flavor = verifier.FLAVORS[ref.flavor]
+    flavor = verifier.for_config(config)
+    per_request = hasattr(mod, "draw")
     comms, n, lagrange = keys.verification_key(ref, keys.DEV_TAU)
     vk_mismatch = sum(vk.commitments.get(label) != pt for label, pt in comms.items())
     vk_mismatch += (vk.n != n) + (vk.num_public_inputs != len(ref.public_inputs))
     base = keys.wire_evaluations(ref, lagrange)
-    public = ref.public_values()
-    rejected = wrong_public = wrong_wires = raised = 0
+    public_ref = ref.public_values()
+    shape = keys.shape(ref) if per_request else None
+    rejected = wrong_public = wrong_wires = raised = differs = 0
     for rec in records:
         proof = rec.get("proof")
         if proof is None:
             raised += 1
             rec["ok"] = False
             continue
+        own = rec.get("circuit")
+        public = public_ref if own is None else rec["public"]
+        same = own is None or keys.same_shape(shape, keys.shape(own))
         ok = verifier.verify(proof, flavor, n, len(public), comms, keys.DEV_TAU)
         pub_ok = ok and verifier.public_inputs(proof, flavor, len(public)) == public
         wires_ok = False
         if ok:
-            t = Transcript(flavor.manifest(len(public)), proof)
+            t = Transcript(flavor.manifest(len(public)), proof, flavor.hash)
             want = keys.wire_commitments(
-                base, seeds.blinding_values(seed, rec["index"], flavor.width,
-                                            keys.BLINDED_ROWS), lagrange)
+                base if own is None else keys.wire_evaluations(own, lagrange),
+                seeds.blinding_values(seed, rec["index"], flavor.width,
+                                      keys.BLINDED_ROWS), lagrange)
             wires_ok = all(bn254.g1_from_bytes(t.elements[f"W_{i + 1}"]) == (True, w)
                            for i, w in enumerate(want))
         rejected += not ok
         wrong_public += ok and not pub_ok
         wrong_wires += ok and not wires_ok
-        rec["ok"] = ok and pub_ok and wires_ok
-    return {"vk_mismatch": vk_mismatch, "requests_raised": raised,
-            "proofs_rejected": rejected, "public_inputs_wrong": wrong_public,
-            "wires_wrong": wrong_wires}
+        differs += not same
+        rec["ok"] = ok and pub_ok and wires_ok and same
+    counts = {"vk_mismatch": vk_mismatch, "requests_raised": raised,
+              "proofs_rejected": rejected, "public_inputs_wrong": wrong_public,
+              "wires_wrong": wrong_wires}
+    if per_request:
+        publics = [tuple(rec["public"]) for rec in records]
+        counts["circuit_differs"] = differs
+        counts["tx_repeated"] = len(publics) - len(set(publics))
+    return counts
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool,
@@ -232,7 +269,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     """Set up, serve the window, check; returns the result's fields.
     ``cell_data``: what ``load_cell(name)`` reads, or a test's small cell;
     ``control`` = ``stale_blinding`` serves every request with the
-    random source of request 0 (the control of the comparison)."""
+    random source of request 0, ``stale_tx`` every request with request 0's
+    input (the controls of the comparison)."""
     import torch
 
     cell, config, mix, end_to_end, per_layer = cell_data or load_cell(name)
@@ -241,6 +279,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     circuit = importlib.import_module(f"plonkbench.circuits.{config['circuit']}")
+    per_request = hasattr(circuit, "draw")
+    if control == "stale_tx" and not per_request:
+        raise ValueError(f"{config['circuit']}: its requests carry no input of their own")
+    make = prover_method(config)
 
     setup = {}
     t0 = time.perf_counter()
@@ -252,7 +294,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     sync()
     setup["key"] = time.perf_counter() - t0
     for i in range(mix["warmup_requests"]):
-        serve(composer, seeds.blinding(seed, -1 - i))
+        rng = seeds.blinding(seed, -1 - i)
+        if per_request:
+            tx, _ = circuit.draw(config, seed, -1 - i)
+            serve_input(circuit, config, tx, device, composer, rng)
+        else:
+            serve(composer, rng, make=make)
     sync()
     setup_s = time.perf_counter() - T_START
     log(f"set-up {setup_s:.3f} s: circuit {setup['circuit_build']:.3f}, "
@@ -262,12 +309,25 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         raise ValueError(f"mix {cell['traffic']}: only one closed-loop client is served")
     traced_ids = range(1, 1 + mix["traced_requests"]) if trace else range(0)
     records, traced, prof = [], [], None
+    pending, first_tx, drawn_s = {}, None, 0.0
     t_open = time.perf_counter()
     index = 0
-    while (index == 0 or time.perf_counter() - t_open < seconds
+    while (index == 0 or time.perf_counter() - t_open - drawn_s < seconds
            or index <= traced_ids.stop - 1):
+        rec = {"index": index}
+        if per_request:
+            if index not in pending:   # the traced requests' inputs before the trace
+                t0 = time.perf_counter()
+                for i in traced_ids if index in traced_ids else (index,):
+                    pending[i] = circuit.draw(config, seed, i)
+                drawn_s += time.perf_counter() - t0
+            tx, rec["public"] = pending.pop(index)
+            if control == "stale_tx":
+                if first_tx is None:
+                    first_tx = tx
+                tx = first_tx
         rng = seeds.blinding(seed, 0 if control == "stale_blinding" else index)
-        spans = None
+        spans = own = None
         if index in traced_ids:
             if prof is None:
                 prof = torch.profiler.profile(activities=[
@@ -279,26 +339,41 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                 msm = msm_span()
                 msm.__enter__()
             spans = Spans(sync)
-        rec = {"index": index, "start": time.perf_counter()}
+        rec["start"] = time.perf_counter()
         try:
-            rec["proof"] = serve(composer, rng, spans)
+            if per_request:
+                rec["proof"], own = serve_input(circuit, config, tx, device, composer,
+                                                rng, spans)
+            else:
+                rec["proof"] = serve(composer, rng, spans, make)
         except Exception as exc:  # a failed request is counted, not fatal
             log(f"request {index} raised {type(exc).__name__}: {exc}")
         rec["latency"] = time.perf_counter() - rec["start"]
         records.append(rec)
         if spans is not None:
-            traced.append({"witness": spans.seconds.get("witness"),
-                           "rounds": {k[len("round."):]: v for k, v in spans.seconds.items()
-                                      if k.startswith("round.")}})
+            entry = {k: v for k, v in spans.seconds.items() if not k.startswith("round.")}
+            entry["rounds"] = {k[len("round."):]: v for k, v in spans.seconds.items()
+                               if k.startswith("round.")}
+            traced.append(entry)
             if index == traced_ids.stop - 1:
                 sync()
                 msm.__exit__(None, None, None)
                 window.__exit__(None, None, None)
                 prof.__exit__(None, None, None)
+        if own is not None:   # keep the request's gates as plain data, free the rest
+            rec["circuit"] = circuit.reference(config, seed, own)
+            own = None
         index += 1
     sync()
-    window_s = time.perf_counter() - t_open
+    window_s = time.perf_counter() - t_open - drawn_s
     peak = torch.cuda.max_memory_allocated() if cuda else 0
+    if per_request:
+        log(f"drew {len(records) + len(pending)} inputs in {drawn_s:.3f} s, "
+            f"left out of the window")
+        kept = [r["circuit"] for r in records if "circuit" in r]
+        if kept:
+            log(f"the check holds {held_bytes(kept[0]) / 2**20:.1f} MiB of plain "
+                f"data a request on the host, {len(kept)} requests")
 
     trace_data = None
     if prof is not None:
@@ -317,13 +392,15 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
 
     t0 = time.perf_counter()
     counts = check_proofs(config, seed, composer, vk, records)
-    log(f"reference check {time.perf_counter() - t0:.3f} s over {len(records)} proofs")
+    ref_s = time.perf_counter() - t0
+    log(f"reference check {ref_s:.3f} s over {len(records)} proofs, "
+        f"{ref_s / max(1, len(records)):.3f} s a proof")
     checks = {k: {"value": v, "limit": 0} for k, v in counts.items()}
     failed = sum(not r["ok"] for r in records)
     correct = bool(records) and all(c["value"] <= c["limit"] for c in checks.values())
 
     out = {"correct": correct, "attempted": len(records), "failed": failed,
-           "window_s": window_s, "setup_s": setup_s, "peak": peak,
+           "window_s": window_s, "drawn_s": drawn_s, "setup_s": setup_s, "peak": peak,
            "latencies": [r["latency"] for r in records], "checks": checks}
     if not trace:
         values = end_to_end_values(out["latencies"], failed, window_s, setup_s, peak)
@@ -331,7 +408,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         return out
 
     run = {"setup": setup, "traced": traced, "trace": trace_data,
-           "subgroup": vk.n, "width": verifier.FLAVORS[config["flavor"]].width}
+           "subgroup": vk.n, "width": verifier.for_config(config).width}
     units = unit_table()
     out["metrics"] = {}
     for m in per_layer:
@@ -344,6 +421,20 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         out["traced_window_s"] = (w1 - w0) / 1e6
         out["breakdown"] = breakdown(trace_data)
     return out
+
+
+def held_bytes(circuit) -> int:
+    """Host bytes of a circuit's plain data: its lists and the integers in
+    them, each object once."""
+    seen, total = set(), 0
+    for values in (circuit.variables, circuit.real, circuit.public_inputs,
+                   *circuit.wires, *circuit.selectors.values()):
+        total += sys.getsizeof(values)
+        for v in values:
+            if id(v) not in seen:
+                seen.add(id(v))
+                total += sys.getsizeof(v)
+    return total
 
 
 def unit_table(bench_path: str = os.path.join(ROOT, "BENCHMARK.json")) -> dict:
@@ -383,7 +474,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    ap.add_argument("--control", choices=("none", "stale_blinding"), default="none",
+    ap.add_argument("--control", choices=("none", "stale_blinding", "stale_tx"),
+                    default="none",
                     help="serve the control of the comparison (not a benchmark run)")
     args = ap.parse_args(argv)
 

@@ -26,7 +26,8 @@ def card():
     return "cuda"
 
 
-TINY = {"circuit": "chain", "flavor": "standard", "log2_subgroup": 8}
+TINY = {"circuit": "chain", "flavor": "standard", "transcript": "keccak256",
+        "log2_subgroup": 8}
 TINY_MIX = {"loop": "closed", "clients": 1, "outstanding": 1,
             "warmup_requests": 0, "traced_requests": 1}
 END_TO_END = ["proofs_per_s", "proof_p90_s", "peak_device_gib", "setup_s"]

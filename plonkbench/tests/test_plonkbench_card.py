@@ -1,7 +1,9 @@
 """On the card, at each cell's own size: a short window is correct, and the
-control (every request served with request 0's random source) is not.  Run
+controls are not: every request served with request 0's random source, and,
+where requests carry inputs of their own, with request 0's input.  Run
 there with ``python -m pytest plonkbench/tests/test_plonkbench_card.py``."""
 
+import importlib
 import json
 import os
 
@@ -11,6 +13,8 @@ from plonkbench import run
 
 with open(os.path.join(run.ROOT, "BENCHMARK.json")) as f:
     CELLS = [w["name"] for w in json.load(f)["workloads"]]
+DRAWN = [c for c in CELLS if hasattr(importlib.import_module(
+    f"plonkbench.circuits.{run.load_cell(c)[1]['circuit']}"), "draw")]
 
 
 @pytest.mark.cuda
@@ -27,4 +31,16 @@ def test_control_is_not_correct(card, cell):
                        control="stale_blinding")
     assert res["attempted"] >= 2
     assert res["checks"]["wires_wrong"]["value"] == res["attempted"] - 1
+    assert not res["correct"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", DRAWN)
+def test_stale_tx_control_is_not_correct(card, cell):
+    """Request 0's tx in every request, as a witness cached across requests
+    would serve: each later proof carries request 0's public inputs."""
+    res = run.run_cell(cell, 2**40 + 97, 10.0, False, device=card, control="stale_tx")
+    counts = {k: c["value"] for k, c in res["checks"].items()}
+    assert res["attempted"] >= 2
+    assert counts["public_inputs_wrong"] + counts["wires_wrong"] >= res["attempted"] - 1
     assert not res["correct"]
